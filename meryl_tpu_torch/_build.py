@@ -1,0 +1,74 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/*.cu` file is compiled by nvcc into a shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers, so a build
+takes seconds).  Libraries go to `meryl_tpu_torch/_build/`, named by a
+hash of the source and the flags, so an edited source builds anew at
+its first use and an unchanged one is loaded as it is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path:
+        return path
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): cannot build the CUDA "
+                       "kernels of meryl_tpu_torch")
+
+
+def lib_path(name: str) -> str:
+    """Path of the built library for csrc/<name>.cu at its current
+    source."""
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu unless its library is current; -> path.
+    Raises RuntimeError with nvcc's stderr when the build fails."""
+    out = lib_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           os.path.join(CSRC, name + ".cu")]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}) building "
+                           f"{name}.cu:\n{r.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built at first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(build(name))
+        return lib
