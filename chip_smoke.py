@@ -3,21 +3,35 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line; any failure exits non-zero:
+Phases, each printing its lines; any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit
-  2. build: the CUDA kernels, from the sources in this checkout
-  3. kernel parity: the extraction kernel against its plain PyTorch
-     version on the card at the production chunk (2^22 codes), every k
-     class and mode, with timings at k=21
-  4. main path: `meryl count k=21` (the entry point of
-     `python -m meryl_tpu_torch`) on a ~70 Mbase FASTQ generated from a
-     seed, with the production geometry, checked exactly against a
-     numpy brute force
-  5. the exactness hatches at small sizes, each against brute force
+  2. build: the CUDA kernels (one nvcc per source, all started together)
+     and the native host library, from the sources in this checkout
+  3. extract parity: the extraction kernel against its plain PyTorch
+     version at the production chunk (2^22 codes), every k class and
+     mode, with timings at k=21
+  4. rowsort parity: the bitonic row sort on int32 rows (the probe's
+     shape, 2^13 rows of 2048) and on set-op rows (256 rows of 5120,
+     k = 16, 21, 32, 33: keys shared by two inputs, sentinel padding
+     that aliases the all-ones k-mer at k = 16 and 32), and the pass
+     floor, each against its plain version, exactly
+  5. the probe (scripts/probe_r4_pallas_sort.py's question, on the
+     card): ns/element of torch.sort (A), the plain two-word sort (B),
+     the bitonic kernel (C) and the pass floor (D)
+  6. count path: `meryl count k=21` through the CLI on a ~70 Mbase
+     FASTQ generated from a seed, with the production geometry, checked
+     exactly against a numpy brute force
+  7. the exactness hatches at small sizes, each against brute force
+  8. set-op path: a second read set of the same genome with 0.1 % SNPs
+     is counted, then a Merqury-style sequence of set operations runs
+     through the CLI on the two ~10.5 M k-mer DBs; every output DB is
+     held against a numpy brute force over the two decoded inputs
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs CUDA; imports no JAX.
 """
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -25,6 +39,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -36,6 +51,9 @@ CHUNK = 1 << 22
 GENOME = 4_641_652      # E. coli K-12 MG1655
 READ_LEN = 150
 COVERAGE = 15
+SNP_RATE = 0.001
+PROBE_ROWS, PROBE_LEN, PROBE_STEPS = 1 << 13, 2048, 2
+SETOP_ROWS, SETOP_LEN = 256, 5120
 
 
 def phase_env(torch):
@@ -49,14 +67,20 @@ def phase_env(torch):
     print(f"nvidia-smi: {smi}")
 
 
-def phase_build(extract_cuda, native):
-    t0 = time.perf_counter()
-    extract_cuda.build()
-    t1 = time.perf_counter()
+def phase_build(kernel_modules, native):
+    """Every kernel library and the native host library at once."""
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    jobs = {name: mod.build for name, mod in kernel_modules.items()}
+    jobs["native host library"] = native.available
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
+        secs = {name: f.result() for name, f in futs.items()}
     have_native = native.available()  # host scanner and k-way merge
-    print(f"build: extract.cu in {t1 - t0:.2f} s; native host library "
-          f"{'built' if have_native else 'UNAVAILABLE'} in "
-          f"{time.perf_counter() - t1:.2f} s")
+    print("build: " + "; ".join(f"{n} in {s:.2f} s" for n, s in secs.items())
+          + ("" if have_native else " (native host library UNAVAILABLE)"))
 
 
 def _time_ms(torch, fn, reps=20):
@@ -108,17 +132,144 @@ def phase_kernel_parity(torch, km, ext, extract_cuda):
         p, e, n_real, k, mode))
     plain_ms = _time_ms(torch, lambda: ext.extract_kmers_packed(
         p, e, n_real, k, mode))
-    print(f"kernel parity: {len(KS) * len(MODES)} (k, mode) cases equal at "
+    print(f"extract parity: {len(KS) * len(MODES)} (k, mode) cases equal at "
           f"L={CHUNK} (n_real={n_real}, {int((exc < CHUNK).sum())} "
           f"exceptions); k=21 canonical kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms")
     return max_err, ms, plain_ms
 
 
-def _make_fastq(path, rng):
-    """Random genome, 150 bp reads from both strands at 15x, 0.5 %
+def _probe_rows(torch, rng, rows):
+    return torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, size=(rows, PROBE_LEN),
+        dtype=np.int64).astype(np.int32)).cuda()
+
+
+def _setop_rows(torch, mw, rng, k):
+    """(R, L) set-op rows as the packer builds them: per row, two
+    sorted inputs drawn from one sorted key pool (so most keys appear
+    in both), then sentinel padding with value 0 and input id 2.  Where
+    the sentinel aliases the all-ones k-mer (k = 16, 32), every 8th row
+    holds that k-mer in both inputs."""
+    R, L = SETOP_ROWS, SETOP_LEN
+    n_pool, n0, n1 = 2600, 2400, 2300
+    nw = mw.num_words(k)
+    sent = np.array(mw.sentinel_words(k), np.int64)
+    allones = mw.from_hilo(*[np.array([w], np.uint64) for w in
+                             mw.sentinel_hilo(k)], k)[0]
+    bits = 2 * k
+    raw = [rng.integers(0, 1 << min(bits, 62), size=(R, n_pool),
+                        dtype=np.uint64)]
+    if nw == 2:
+        raw = [rng.integers(0, 1 << (bits - 64), size=(R, n_pool),
+                            dtype=np.uint64), raw[0]]
+    words = [(w ^ np.uint64(1 << 63)).view(np.int64) for w in raw]
+    pool = np.stack(words, axis=-1)                 # (R, n_pool, nw)
+    aliased = bits % 32 == 0
+    if aliased:
+        pool[::8, -1] = allones
+    order = np.lexsort(tuple(pool[..., q] for q in range(nw - 1, -1, -1)))
+    pool = np.take_along_axis(pool, order[..., None], axis=1)
+    key = np.empty((R, L, nw), np.int64)
+    key[:] = sent
+    vals = np.zeros((R, L), np.int64)
+    ids = np.full((R, L), 2, np.int32)
+    pos = 0
+    for i, n in enumerate((n0, n1)):
+        pick = np.sort(np.argsort(rng.random((R, n_pool)), axis=1)[:, :n],
+                       axis=1)
+        if aliased:
+            pick[::8, -1] = n_pool - 1              # the all-ones k-mer
+        key[:, pos:pos + n] = np.take_along_axis(pool, pick[..., None], 1)
+        v = rng.integers(1, 60, size=(R, n))
+        big = rng.random((R, n)) < 0.01
+        v[big] = (1 << 32) - 1
+        vals[:, pos:pos + n] = v
+        ids[:, pos:pos + n] = i
+        pos += n
+    if nw == 1:
+        key = key[..., 0]
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in (key, vals, ids)]
+
+
+def phase_rowsort_parity(torch, mw, rowsort):
+    rng = np.random.default_rng(SEED + 5)
+    x = _probe_rows(torch, rng, PROBE_ROWS)
+    got = rowsort.bitonic_rows(x)
+    want = rowsort.bitonic_rows_plain(x)
+    torch.cuda.synchronize()
+    err_a = int((got.long() - want.long()).abs().max())
+    pf = rowsort.pass_floor(x)
+    pf_want = rowsort.pass_floor_plain(x)
+    torch.cuda.synchronize()
+    err_d = int((pf.long() - pf_want.long()).abs().max())
+    errs_b = {}
+    for k in (16, 21, 32, 33):
+        key, vals, ids = _setop_rows(torch, mw, rng, k)
+        got = rowsort.sort_rows(key, vals, ids, k)
+        want = rowsort.sort_rows_plain(key, vals, ids, k)
+        torch.cuda.synchronize()
+        errs_b[k] = max(int((g.long() - w.long()).abs().max())
+                        for g, w in zip(got, want))
+    if err_a or err_d or any(errs_b.values()):
+        raise AssertionError(f"row sorts differ from their plain versions: "
+                             f"bitonic int32 {err_a}, pass floor {err_d}, "
+                             f"set-op rows {errs_b}")
+    key, vals, ids = _setop_rows(torch, mw, rng, 21)
+    t = {
+        "a": _time_ms(torch, lambda: rowsort.bitonic_rows(x)),
+        "a_plain": _time_ms(torch, lambda: rowsort.bitonic_rows_plain(x)),
+        "b": _time_ms(torch, lambda: rowsort.sort_rows(key, vals, ids, 21)),
+        "b_plain": _time_ms(torch, lambda: rowsort.sort_rows_plain(
+            key, vals, ids, 21)),
+        "d": _time_ms(torch, lambda: rowsort.pass_floor(x)),
+        "d_plain": _time_ms(torch, lambda: rowsort.pass_floor_plain(x)),
+    }
+    print(f"rowsort parity: bitonic int32 ({PROBE_ROWS} x {PROBE_LEN}) equal "
+          f"to torch.sort; set-op rows ({SETOP_ROWS} x {SETOP_LEN}, "
+          f"k = 16 21 32 33) equal to the plain stable sort, payloads "
+          f"included; pass floor equal to its plain version")
+    print(f"rowsort times: bitonic int32 kernel {t['a']:.4f} ms, plain "
+          f"{t['a_plain']:.4f} ms; set-op rows k=21 kernel {t['b']:.4f} ms, "
+          f"plain {t['b_plain']:.4f} ms; pass floor kernel {t['d']:.4f} ms, "
+          f"plain {t['d_plain']:.4f} ms")
+    return max(err_a, *errs_b.values()), err_d, t
+
+
+def phase_probe(torch, mw, rowsort):
+    """The probe's four measurements, over PROBE_STEPS x PROBE_ROWS rows
+    of PROBE_LEN int32 (two planes for B)."""
+    rng = np.random.default_rng(SEED + 6)
+    rows = PROBE_STEPS * PROBE_ROWS
+    n = rows * PROBE_LEN
+    x = _probe_rows(torch, rng, rows)
+    x2 = torch.stack([_probe_rows(torch, rng, rows).long(), x.long()],
+                     dim=-1).contiguous()            # (rows, L, 2) words
+    rowsort.LAUNCHES = rowsort.PASS_FLOOR_LAUNCHES = 0
+    ns = {
+        "A torch.sort 1-plane": _time_ms(
+            torch, lambda: torch.sort(x, dim=-1), reps=10),
+        "B plain two-word sort": _time_ms(
+            torch, lambda: mw.sort(x2, 33), reps=10),
+        "C bitonic kernel 1-plane": _time_ms(
+            torch, lambda: rowsort.bitonic_rows(x), reps=10),
+        "D pass floor (66 passes)": _time_ms(
+            torch, lambda: rowsort.pass_floor(x), reps=10),
+    }
+    launches = rowsort.PASS_FLOOR_LAUNCHES
+    print("probe (ns/element over " f"{n} int32 elements): " + "; ".join(
+        f"{name} {ms * 1e6 / n:.4f}" for name, ms in ns.items()))
+    return launches
+
+
+def _make_genome(rng):
+    return rng.integers(0, 4, size=GENOME).astype(np.uint8)
+
+
+def _make_fastq(path, genome, rng):
+    """150 bp reads of `genome` from both strands at 15x, 0.5 %
     substitutions, sprinkled N.  -> (n, 150) read codes (4 = N)."""
-    genome = rng.integers(0, 4, size=GENOME).astype(np.uint8)
     n = COVERAGE * GENOME // READ_LEN
     starts = rng.integers(0, GENOME - READ_LEN + 1, size=n)
     reads = genome[starts[:, None] + np.arange(READ_LEN)]
@@ -160,13 +311,14 @@ def _brute_canonical(reads, k):
 def phase_main_path(torch, cli, counter, accum, extract_cuda, MerylDB,
                     workdir):
     rng = np.random.default_rng(SEED + 1)
+    genome = _make_genome(rng)
     fq = os.path.join(workdir, "reads.fq")
-    reads = _make_fastq(fq, rng)
+    reads = _make_fastq(fq, genome, rng)
     exp = counter.configure_counting([fq], 21)["expected_kmers"]
     plan = accum.plan_route(CHUNK, 21, exp)
     if (plan["L0"], plan["B"], plan["M"]) != (1 << 18, 1024, 8):
         raise AssertionError(f"not the production geometry: {plan}")
-    db = os.path.join(workdir, "out.meryl")
+    db = os.path.join(workdir, "a.meryl")
     torch.cuda.reset_peak_memory_stats()
     extract_cuda.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -190,7 +342,7 @@ def phase_main_path(torch, cli, counter, accum, extract_cuda, MerylDB,
         raise AssertionError(f"extract kernel launches {launches} < "
                              f"chunks {stats['chunks']}")
     bases = int(reads.size)
-    print(f"main path: {bases} input bases, {stats['chunks']} chunks, "
+    print(f"count path: {bases} input bases, {stats['chunks']} chunks, "
           f"{bases / wall / 1e6:.3f} Mbases/s ({wall:.3f} s wall incl. DB "
           f"write), {len(lo)} distinct k-mers equal to brute force; "
           f"merges {stats['merges']} regrows {stats['regrows']} recounts "
@@ -198,8 +350,8 @@ def phase_main_path(torch, cli, counter, accum, extract_cuda, MerylDB,
           f"{stats['salvaged']}; extract LAUNCHES {launches}; "
           f"max_memory_allocated {peak} B; geometry L0={plan['L0']} "
           f"B={plan['B']} M={plan['M']} c={plan['c']} La0={plan['La0']}")
-    print("main path stats: " + json.dumps(stats, sort_keys=True))
-    return launches
+    print("count path stats: " + json.dumps(stats, sort_keys=True))
+    return launches, genome, db
 
 
 COMP = {"A": "T", "C": "G", "G": "C", "T": "A"}
@@ -273,6 +425,165 @@ def phase_hatches(counter, workdir):
     print("hatches: " + ", ".join(done) + " equal to brute force")
 
 
+# ------------------------------------------------------------ set ops
+
+def _setop_brute(a, b):
+    """Expected (k-mers, values) of each set-op command, from the two
+    decoded inputs (sorted unique uint64 k-mers and their counts),
+    independent of both packages."""
+    (la, ca), (lb, cb) = a, b
+    ca, cb = ca.astype(np.int64), cb.astype(np.int64)
+    in_b = np.isin(la, lb, assume_unique=True)
+    u = np.union1d(la, lb)
+    us = np.zeros(len(u), np.int64)
+    us[np.searchsorted(u, la)] += ca
+    us[np.searchsorted(u, lb)] += cb
+    common, ia, ib = np.intersect1d(la, lb, assume_unique=True,
+                                    return_indices=True)
+    cb_at_a = np.zeros(len(la), np.int64)
+    cb_at_a[ia] = cb[ib]
+    sub = np.where(in_b, ca - cb_at_a, ca)
+    keep_sub = ~in_b | (ca > cb_at_a)
+    nested = (ca > 1) & ~in_b
+    return {
+        "union-sum": (u, us & 0xFFFFFFFF),
+        "intersect-min": (common, np.minimum(ca[ia], cb[ib])),
+        "difference": (la[~in_b], ca[~in_b]),
+        "solid": (la[ca > 1], ca[ca > 1]),
+        "nested": (la[nested], ca[nested]),
+        "subtract": (la[keep_sub], sub[keep_sub]),
+    }
+
+
+def phase_setops(torch, cli, optree, rowsort, MerylDB, genome, db_a,
+                 workdir, device="cuda"):
+    """Count a second read set, then the Merqury-style sequence."""
+    rng = np.random.default_rng(SEED + 3)
+    g2 = genome.copy()
+    snp = rng.random(GENOME) < SNP_RATE
+    g2[snp] = (g2[snp] + rng.integers(1, 4, size=int(snp.sum()))
+               .astype(np.uint8)) % 4
+    fq = os.path.join(workdir, "reads_b.fq")
+    _make_fastq(fq, g2, rng)
+    db_b = os.path.join(workdir, "b.meryl")
+    t0 = time.perf_counter()
+    if cli.main(["count", "k=21", fq, "output", db_b,
+                 f"device={device}"]) != 0:
+        raise AssertionError("counting the second read set failed")
+    print(f"set-op inputs: b = {int(snp.sum())} SNPs, counted in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    def decode(path):
+        hi, lo, c = MerylDB.open(path).load_all()
+        if (hi != 0).any():
+            raise AssertionError(f"{path}: k=21 k-mers with hi bits")
+        return lo, c
+    a, b = decode(db_a), decode(db_b)
+    want = _setop_brute(a, b)
+    out = lambda name: os.path.join(workdir, name + ".meryl")  # noqa: E731
+    cmds = [
+        ("union-sum", ["union-sum", db_a, db_b, "output", out("u")]),
+        ("intersect-min", ["intersect-min", db_a, db_b, "output",
+                           out("imin")]),
+        ("difference", ["difference", db_a, db_b, "output", out("diff")]),
+        ("solid", ["[greater-than", "1", db_a, "output", out("solid") + "]"]),
+        ("nested", ["intersect", "[greater-than", "1", db_a + "]",
+                    "[difference", db_a, db_b + "]", "output",
+                    out("nested")]),
+        ("subtract", ["subtract", db_a, db_b, "output", out("sub")]),
+    ]
+    outs = {"union-sum": "u", "intersect-min": "imin", "difference": "diff",
+            "solid": "solid", "nested": "nested", "subtract": "sub"}
+    rowsort.LAUNCHES = 0
+    total_entries, total_wall = 0, 0.0
+    for name, argv in cmds:
+        optree.reset_stats()
+        before = rowsort.LAUNCHES
+        t0 = time.perf_counter()
+        rc = cli.main(argv + [f"device={device}"])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rowsort.LAUNCHES - before
+        if rc != 0:
+            raise AssertionError(f"{' '.join(argv)} exited {rc}")
+        hi, lo, c = MerylDB.open(out(outs[name])).load_all()
+        wk, wv = want[name]
+        if not (len(lo) == len(wk) and (hi == 0).all()
+                and np.array_equal(lo, wk)
+                and np.array_equal(c.astype(np.int64), wv)):
+            raise AssertionError(f"{name}: DB differs from brute force "
+                                 f"({len(lo)} vs {len(wk)} k-mers)")
+        s = dict(optree.STATS)
+        if device == "cuda" and launches == 0:
+            raise AssertionError(f"{name}: rowsort kernel never launched")
+        total_entries += s["entries"]
+        total_wall += wall
+        print(f"set-op {name}: {wall:.3f} s wall, {s['entries']} input "
+              f"entries, {len(lo)} output k-mers equal to brute force, "
+              f"{s['dispatches']} dispatches ({s['row_dispatches']} "
+              f"row-batched), mean R "
+              f"{s['rows'] / max(1, s['row_dispatches']):.1f}, mean L "
+              f"{s['row_slots'] / max(1, s['rows']):.1f}, rowsort LAUNCHES "
+              f"{launches}")
+    for name, argv, check in (
+            ("histogram", ["histogram", out("u")], _check_histogram),
+            ("statistics", ["statistics", out("u")], _check_statistics)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv + [f"device={device}"])
+        wall = time.perf_counter() - t0
+        if rc != 0 or not check(buf.getvalue(), want["union-sum"][1]):
+            raise AssertionError(f"{name} u: wrong report:\n"
+                                 f"{buf.getvalue()[:2000]}")
+        print(f"set-op {name} u: {wall:.3f} s wall, report equal to brute "
+              f"force")
+    path_launches = rowsort.LAUNCHES
+    print(f"set-op path: {total_entries} entries merged in {total_wall:.3f} "
+          f"s, {total_entries / total_wall / 1e6:.3f} M entries/s; rowsort "
+          f"LAUNCHES {path_launches}")
+    return path_launches, db_b
+
+
+def _check_histogram(text, values):
+    v, o = np.unique(values, return_counts=True)
+    return text == "".join(f"{a}\t{b}\n" for a, b in zip(v.tolist(),
+                                                         o.tolist()))
+
+
+def _check_statistics(text, values):
+    fields = {ln.split()[0]: int(ln.split()[1]) for ln in text.splitlines()
+              if ln.startswith(("  unique ", "  distinct ", "  present "))}
+    return fields == {"unique": int((values == 1).sum()),
+                      "distinct": len(values), "present": int(values.sum())}
+
+
+def phase_setop_rows(torch, optree, rowsort, db_a, db_b):
+    """Kernel (b) against its plain version on rows the set-op path
+    packs: the first bucket group of `union-sum a b`."""
+    node = optree.OpNode(op="union-sum", inputs=[optree.DBInput(db_a),
+                                                 optree.DBInput(db_b)])
+    group = optree.bucket_groups(node)[0]
+    ins = [inp.open() for inp in node.inputs]
+    ins = [optree.BucketEvaluator._concat_buckets(
+        [db.load_bucket(ff) for ff in group]) for db in ins]
+    ev = optree.BucketEvaluator(21, "cuda")
+    keys, values, ids = (torch.from_numpy(x).cuda()
+                         for x in ev._pack_rows(ins, 2))
+    got = rowsort.sort_rows(keys, values, ids, 21)
+    want = rowsort.sort_rows_plain(keys, values, ids, 21)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("set-op rows: kernel differs from plain")
+    ms = _time_ms(torch, lambda: rowsort.sort_rows(keys, values, ids, 21))
+    plain = _time_ms(torch, lambda: rowsort.sort_rows_plain(
+        keys, values, ids, 21))
+    R, L = values.shape
+    print(f"set-op rows (union-sum, buckets {group[0]}..{group[-1]}, R={R} "
+          f"L={L}): kernel {ms:.4f} ms, plain {plain:.4f} ms, equal")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -283,27 +594,46 @@ def main():
     from meryl_tpu import kmer as km
     from meryl_tpu import native
     from meryl_tpu.db import MerylDB
-    from meryl_tpu_torch import cli, counter
-    from meryl_tpu_torch.ops import accum, extract_cuda
+    from meryl_tpu_torch import cli, counter, optree
+    from meryl_tpu_torch.ops import accum, extract_cuda, rowsort
     from meryl_tpu_torch.ops import extract as ext
+    from meryl_tpu_torch.ops import multiword as mw
 
     phase_env(torch)
-    phase_build(extract_cuda, native)
+    phase_build({"extract.cu": extract_cuda, "rowsort.cu": rowsort}, native)
     max_err, ms, plain_ms = phase_kernel_parity(torch, km, ext,
                                                 extract_cuda)
+    err_b, err_d, rt = phase_rowsort_parity(torch, mw, rowsort)
+    floor_launches = phase_probe(torch, mw, rowsort)
     workdir = tempfile.mkdtemp(prefix="meryl_torch_smoke_")
     try:
-        launches = phase_main_path(torch, cli, counter, accum,
-                                   extract_cuda, MerylDB, workdir)
+        launches, genome, db_a = phase_main_path(
+            torch, cli, counter, accum, extract_cuda, MerylDB, workdir)
         phase_hatches(counter, workdir)
+        sort_launches, db_b = phase_setops(torch, cli, optree, rowsort,
+                                           MerylDB, genome, db_a, workdir)
+        phase_setop_rows(torch, optree, rowsort, db_a, db_b)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    print(json.dumps({"kernels": [{
-        "name": "extract_kmers_packed", "route": "cuda",
-        "source": "meryl_tpu_torch/csrc/extract.cu",
-        "replaces": "meryl_tpu/ops/extract_pallas.py:136",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+    probe = "scripts/probe_r4_pallas_sort.py"
+    print(json.dumps({"kernels": [
+        {"name": "extract", "route": "cuda",
+         "source": "meryl_tpu_torch/csrc/extract.cu",
+         "replaces": "meryl_tpu/ops/extract_pallas.py:136",
+         "launches": launches, "max_abs_err": max_err, "ms": ms,
+         "plain_ms": plain_ms, "path": "count"},
+        {"name": "rowsort_bitonic", "route": "cuda",
+         "source": "meryl_tpu_torch/csrc/rowsort.cu",
+         "replaces": f"{probe}:69",
+         "launches": sort_launches, "max_abs_err": err_b, "ms": rt["b"],
+         "plain_ms": rt["b_plain"], "path": "set operations",
+         "shape": f"{SETOP_ROWS}x{SETOP_LEN} k=21"},
+        {"name": "rowsort_pass_floor", "route": "cuda",
+         "source": "meryl_tpu_torch/csrc/rowsort.cu",
+         "replaces": f"{probe}:94",
+         "launches": floor_launches, "max_abs_err": err_d, "ms": rt["d"],
+         "plain_ms": rt["d_plain"], "path": "probe",
+         "shape": f"{PROBE_ROWS}x{PROBE_LEN}"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -23,6 +23,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -66,8 +67,11 @@ def build(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built at first use."""
+    """The loaded library for csrc/<name>.cu, built at first use.  Two
+    sources build at the same time; one source builds once."""
     with _lock:
+        lock = _name_locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(build(name))

@@ -12,7 +12,7 @@ import torch
 
 from meryl_tpu import cli as ref_cli
 from meryl_tpu import kmer as km
-from meryl_tpu.db import MerylDB
+from meryl_tpu.db import MerylDB, bucket_name
 from meryl_tpu_torch import cli
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,7 +78,7 @@ import os, sys
 sys.modules["jax"] = None          # any import of jax now fails
 import numpy as np
 from meryl_tpu_torch.cli import main
-from meryl_tpu.db import MerylDB
+from meryl_tpu.db import MerylDB, bucket_name
 fa, out = sys.argv[1], sys.argv[2]
 seqs = [l.strip() for l in open(fa) if not l.startswith(">")]
 comp = {"A": "T", "C": "G", "G": "C", "T": "A"}
@@ -132,7 +132,8 @@ _JAX_BOUND = ("meryl_tpu.counter", "meryl_tpu.ops", "meryl_tpu.cli",
 
 
 def _imports(path):
-    tree = ast.parse(open(path).read(), path)
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for a in node.names:
@@ -171,11 +172,196 @@ def test_cuda_device_without_cuda_fails_clearly(reads, monkeypatch,
 
 @pytest.mark.parametrize("word,item", [("memory=4", "A11"),
                                        ("count-suffix=ACG", "A13"),
-                                       ("print", "A7"),
-                                       ("union-sum", "A7")])
+                                       ("threads=4", "A11"),
+                                       ("n=1000", "A11"),
+                                       ("-C", "A11"),
+                                       ("segment=1/2", "A10")])
 def test_unported_words_name_roadmap_item(reads, capsys, word, item):
     root, fq = reads
     assert cli.main(["count", "k=21", fq, word, "output",
                      str(root / "y.meryl"), "device=cpu"]) == 1
     err = capsys.readouterr().err
     assert "not yet ported in meryl_tpu_torch" in err and item in err
+
+
+# ------------------------------------------------------------- set ops
+
+@pytest.fixture(scope="module")
+def two_dbs(reads, tmp_path_factory):
+    """a: the module's reads; b: reads of the same genome region with
+    substitutions, so the two DBs share most k-mers but not all."""
+    root, fq = reads
+    rng = np.random.default_rng(12)
+    fq2 = str(root / "reads2.fq")
+    with open(fq) as f:
+        lines = f.read().split("\n")
+    with open(fq2, "w") as f:
+        for i in range(0, len(lines) - 1, 4):
+            seq = list(lines[i + 1])
+            for j in rng.integers(0, len(seq), size=2):
+                seq[j] = "ACGT"[(("ACGT".find(seq[j]) + 1) % 4)]
+            if i % 12 == 0:
+                f.write(f"{lines[i]}\n{''.join(seq)}\n+\n{lines[i + 3]}\n")
+            f.write(f"{lines[i]}\n{''.join(seq)}\n+\n{lines[i + 3]}\n")
+    a, b = str(root / "a.meryl"), str(root / "b.meryl")
+    assert ref_cli.main(["k=21", "count", fq, "output", a]) == 0
+    assert ref_cli.main(["k=21", "count", fq2, "output", b]) == 0
+    return a, b
+
+
+SETOP_CMDS = [
+    ["union-sum", "A", "B"],
+    ["union", "A", "B", "A"],
+    ["intersect-min", "A", "B"],
+    ["intersect-sum", "A", "B"],
+    ["difference", "A", "B"],
+    ["symmetric-difference", "A", "B"],
+    ["subtract", "A", "B"],
+    ["greater-than", "1", "A"],
+    ["at-least", "t=2", "B"],
+    ["intersect", "[greater-than", "1", "A]", "[difference", "A", "B]"],
+    ["union-max", "[divide-round", "3", "A]", "[multiply", "4294967295",
+     "B]"],
+    ["modulo", "3", "[increase", "4294967294", "A]"],
+    ["equal-to", "2", "B", "printACGT"],
+    ["at-least", "d=0.9", "A"],
+    ["less-than", "f=0.0002", "B"],
+]
+
+
+def _sub(cmd, a, b):
+    return [{"A": a, "B": b}.get(w, w.replace("A]", a + "]")
+                                   .replace("B]", b + "]")) for w in cmd]
+
+
+@pytest.mark.parametrize("cmd", SETOP_CMDS, ids=lambda c: "_".join(c[:2]))
+def test_setop_commands_match_reference(two_dbs, tmp_path, capsysbinary,
+                                        cmd):
+    a, b = two_dbs
+    words = _sub(cmd, a, b)
+    outs = {}
+    for name, main, extra in (("ref", ref_cli.main, []),
+                              ("port", cli.main, ["device=cpu"])):
+        db = str(tmp_path / f"{name}.meryl")
+        printer = [] if "printACGT" in cmd else ["print"]
+        assert main(words + ["output", db] + printer + extra) == 0
+        outs[name] = (capsysbinary.readouterr().out, _db(db))
+    assert outs["port"] == outs["ref"]
+    assert outs["ref"][0] and outs["ref"][1]
+
+
+@pytest.mark.parametrize("cmd", [["histogram", "A"], ["statistics", "B"],
+                                 ["ploidy", "A"], ["noise", "B"],
+                                 ["print", "A"], ["compare", "A", "B"],
+                                 ["compare", "A", "A"],
+                                 ["print", "[less-than", "3", "B]"]],
+                         ids=lambda c: "_".join(c[:2]))
+def test_report_commands_match_reference(two_dbs, capsysbinary, cmd):
+    a, b = two_dbs
+    words = _sub(cmd, a, b)
+    assert ref_cli.main(words) == 0
+    want = capsysbinary.readouterr().out
+    assert cli.main(words + ["device=cpu"]) == 0
+    assert capsysbinary.readouterr().out == want
+    assert want or cmd == ["compare", "A", "A"]
+
+
+def test_count_inside_a_tree_matches_reference(reads, tmp_path,
+                                               capsysbinary, monkeypatch):
+    """A counting node materialized inside a set-op tree."""
+    monkeypatch.setenv("MERYL_TPU_SHARDED", "0")
+    root, fq = reads
+    a = str(root / "tree_a.meryl")
+    assert ref_cli.main(["k=21", "count", fq, "output", a]) == 0
+    for name, main, extra in (("ref", ref_cli.main, []),
+                              ("port", cli.main, ["device=cpu"])):
+        db = str(tmp_path / f"{name}.meryl")
+        assert main(["k=21", "intersect-max", a, "[count", fq, "]",
+                     "output", db, *extra]) == 0
+    assert _db(str(tmp_path / "port.meryl")) == \
+        _db(str(tmp_path / "ref.meryl"))
+
+
+def test_dump_commands_match_reference(two_dbs, capsysbinary):
+    a, _ = two_dbs
+    for words in (["dumpIndex", a],
+                  ["dumpFile", os.path.join(a, bucket_name(5))]):
+        assert ref_cli.main(words) == 0
+        want = capsysbinary.readouterr().out
+        assert cli.main(words) == 0
+        assert capsysbinary.readouterr().out == want and want
+
+
+_MERQURY_NO_JAX = r"""
+import contextlib, io, random, sys
+sys.modules["jax"] = None          # any import of jax now fails
+from meryl_tpu_torch.cli import main
+K = 15
+root = sys.argv[1]
+rng = random.Random(5)
+genome = "".join(rng.choices("ACGT", k=4000))
+reads = []
+for off in (0, 67, 134):
+    p = off
+    while p + 200 <= len(genome):
+        reads.append(genome[p:p + 200])
+        p += 200 - (K - 1)
+    reads.append(genome[-200:])
+pos = 2000
+wrong = {"A": "C", "C": "G", "G": "T", "T": "A"}[genome[pos]]
+assembly = genome[:pos] + wrong + genome[pos + 1:]
+open(f"{root}/reads.fa", "w").write(
+    "".join(f">r{i}\n{s}\n" for i, s in enumerate(reads)))
+open(f"{root}/asm.fa", "w").write(f">asm\n{assembly}\n")
+rdb, adb = f"{root}/reads.meryl", f"{root}/asm.meryl"
+dev = "device=cpu"
+assert main([f"k={K}", "count", f"{root}/reads.fa", "output", rdb, dev]) == 0
+assert main([f"k={K}", "count", f"{root}/asm.fa", "output", adb, dev]) == 0
+
+def canon(s):
+    rc = s[::-1].translate(str.maketrans("ACGT", "TGCA"))
+    o = {"A": 0, "C": 1, "T": 2, "G": 3}
+    return s if [o[c] for c in s] <= [o[c] for c in rc] else rc
+
+def kmers(s):
+    return {canon(s[i:i + K]) for i in range(len(s) - K + 1)}
+
+def printed(db):
+    buf = io.BytesIO()
+    out = io.TextIOWrapper(buf)
+    with contextlib.redirect_stdout(out):
+        assert main(["print", db, dev]) == 0
+        out.flush()
+    return {l.split("\t")[0] for l in buf.getvalue().decode().splitlines()}
+
+solid, errs, found = (f"{root}/{n}.meryl" for n in ("solid", "errs", "found"))
+assert main(["at-least", "2", rdb, "output", solid, dev]) == 0
+cnt = {}
+for r in reads:
+    for i in range(len(r) - K + 1):
+        cnt[canon(r[i:i + K])] = cnt.get(canon(r[i:i + K]), 0) + 1
+assert printed(solid) == {k for k, v in cnt.items() if v >= 2}
+assert main(["difference", adb, rdb, "output", errs, dev]) == 0
+rk = set()
+for r in reads:
+    rk |= kmers(r)
+got_err = printed(errs)
+assert got_err == kmers(assembly) - rk and 1 <= len(got_err) <= K
+assert main(["intersect", solid, adb, "output", found, dev]) == 0
+completeness = len(printed(found)) / len(printed(solid))
+assert 0.97 < completeness < 1.0, completeness
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+               if sys.modules[m] is not None)
+print("OK", len(got_err), completeness)
+"""
+
+
+def test_merqury_workflow_with_jax_blocked(tmp_path):
+    """tests/test_workflow_merqury.py's counting and set-op steps
+    through the port's CLI, in a process where jax cannot be imported."""
+    r = subprocess.run([sys.executable, "-c", _MERQURY_NO_JAX,
+                        str(tmp_path)], capture_output=True, text=True,
+                       timeout=300, cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("OK")

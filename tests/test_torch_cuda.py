@@ -1,5 +1,6 @@
-"""meryl_tpu_torch on the card: the CUDA extraction kernel against its
-plain PyTorch version, and the counting path on CUDA against the CPU.
+"""meryl_tpu_torch on the card: the CUDA kernels (extraction, the
+bitonic row sorts and their pass floor) against their plain PyTorch
+versions, and the counting and set-op paths on CUDA against the CPU.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no JAX, so on
 the card's machine (which has none) run it without the suite's
@@ -17,6 +18,8 @@ from meryl_tpu_torch import counter
 from meryl_tpu_torch.ops import accum
 from meryl_tpu_torch.ops import extract as ext
 from meryl_tpu_torch.ops import extract_cuda
+from meryl_tpu_torch.ops import multiword as mw
+from meryl_tpu_torch.ops import rowsort, setops
 
 pytestmark = pytest.mark.cuda
 
@@ -80,6 +83,93 @@ def test_route_cuda_matches_cpu(cuda, k, mode):
     p, e, n_real = _wire(k, chunk, cuda)
     got = accum.route_chunk_packed(p, e, n_real, cfg)
     want = accum.route_chunk_packed(p.cpu(), e.cpu(), n_real, cfg)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _rows(seed, R, L, lo=-(1 << 31), hi=1 << 31):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(lo, hi, size=(R, L),
+                                         dtype=np.int64).astype(np.int32))
+
+
+@pytest.mark.parametrize("R,L", [(3, 1), (5, 7), (64, 2048), (4, 3000),
+                                 (8, rowsort.MAX_ROW)])
+@pytest.mark.parametrize("span", [1 << 31, 5])
+def test_bitonic_rows_matches_plain(cuda, R, L, span):
+    x = _rows(R * L + span, R, L, -span, span).to(cuda)
+    before = rowsort.LAUNCHES
+    got = rowsort.bitonic_rows(x)
+    torch.cuda.synchronize()
+    assert rowsort.LAUNCHES == before + 1
+    assert torch.equal(got, rowsort.bitonic_rows_plain(x))
+
+
+@pytest.mark.parametrize("R,L", [(2, 1), (64, 2048), (7, 999), (8, 5120),
+                                 (4, rowsort.MAX_ROW)])
+def test_pass_floor_matches_plain(cuda, R, L):
+    x = _rows(R + L, R, L).to(cuda)
+    before = rowsort.PASS_FLOOR_LAUNCHES
+    got = rowsort.pass_floor(x)
+    torch.cuda.synchronize()
+    assert rowsort.PASS_FLOOR_LAUNCHES == before + 1
+    assert torch.equal(got, rowsort.pass_floor_plain(x))
+
+
+def _set_rows(seed, R, L, k):
+    """Rows of set-op entries: keys drawn from a small pool (so ties
+    across inputs are common), the sentinel as padding, values and
+    input ids as payloads."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(-(1 << 63), (1 << 63) - 1, size=(max(4, L // 3),
+                                                         mw.num_words(k)))
+    key = pool[rng.integers(0, len(pool), size=(R, L))]
+    sent = np.array(mw.sentinel_words(k), np.int64)
+    key[rng.random((R, L)) < 0.1] = sent
+    if mw.num_words(k) == 1:
+        key = key[..., 0]
+    vals = rng.integers(0, 1 << 32, size=(R, L))
+    ids = rng.integers(0, 3, size=(R, L)).astype(np.int32)
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in (key, vals,
+                                                                ids)]
+
+
+@pytest.mark.parametrize("k", [16, 21, 32, 33, 64])
+@pytest.mark.parametrize("R,L", [(3, 1), (5, 300), (16, 5120),
+                                 (4, rowsort.MAX_ROW)])
+def test_sort_rows_matches_plain(cuda, k, R, L):
+    key, vals, ids = (t.to(cuda) for t in _set_rows(k * L, R, L, k))
+    before = rowsort.LAUNCHES
+    got = rowsort.sort_rows(key, vals, ids, k)
+    torch.cuda.synchronize()
+    assert rowsort.LAUNCHES == before + 1
+    want = rowsort.sort_rows_plain(key, vals, ids, k)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_rowsort_rejects_bad_input(cuda):
+    x = _rows(1, 2, rowsort.MAX_ROW + 2).to(cuda)
+    with pytest.raises(ValueError):
+        rowsort.bitonic_rows(x)
+    with pytest.raises(ValueError):
+        rowsort.bitonic_rows(x[:, :64].long())
+    key, vals, ids = (t.to(cuda) for t in _set_rows(2, 2, 64, 21))
+    with pytest.raises(ValueError):
+        rowsort.sort_rows(key, vals, ids.long(), 21)
+    with pytest.raises(ValueError):
+        rowsort.sort_rows(key, vals.cpu(), ids, 21)
+
+
+@pytest.mark.parametrize("op,m", [("union-sum", 2), ("intersect", 3),
+                                  ("subtract", 2), ("greater-than", 1)])
+def test_merge_rows_cuda_matches_cpu(cuda, op, m):
+    k = 21
+    key, vals, ids = _set_rows(7, 8, 1024, k)
+    ids = ids % m
+    got = setops.merge_op(key.to(cuda), vals.to(cuda), ids.to(cuda), op, m,
+                          1, k)
+    want = setops.merge_op(key, vals, ids, op, m, 1, k)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
 
