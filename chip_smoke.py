@@ -11,10 +11,10 @@ Phases, each printing its lines; any failure exits non-zero:
      version at the production chunk (2^22 codes), every k class and
      mode, with timings at k=21
   4. rowsort parity: the bitonic row sort on int32 rows (the probe's
-     shape, 2^13 rows of 2048) and on set-op rows (256 rows of 5120,
-     k = 16, 21, 32, 33: keys shared by two inputs, sentinel padding
-     that aliases the all-ones k-mer at k = 16 and 32), and the pass
-     floor, each against its plain version, exactly
+     shape, 2^13 rows of 2048) and on synthetic set-op rows (256 rows of
+     5120, k = 16, 21, 32, 33: keys shared by two inputs, sentinel
+     padding that aliases the all-ones k-mer at k = 16 and 32), and the
+     pass floor, each against its plain version, exactly, with times
   5. the probe (scripts/probe_r4_pallas_sort.py's question, on the
      card): ns/element of torch.sort (A), the plain two-word sort (B),
      the bitonic kernel (C) and the pass floor (D)
@@ -25,7 +25,9 @@ Phases, each printing its lines; any failure exits non-zero:
   8. set-op path: a second read set of the same genome with 0.1 % SNPs
      is counted, then a Merqury-style sequence of set operations runs
      through the CLI on the two ~10.5 M k-mer DBs; every output DB is
-     held against a numpy brute force over the two decoded inputs
+     held against a numpy brute force over the two decoded inputs; then
+     the set-op row sort against its plain version on the rows the path
+     packs (the first bucket group of `union-sum a b`), exactly, timed
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs CUDA; imports no JAX.
 """
@@ -234,7 +236,7 @@ def phase_rowsort_parity(torch, mw, rowsort):
           f"{t['a_plain']:.4f} ms; set-op rows k=21 kernel {t['b']:.4f} ms, "
           f"plain {t['b_plain']:.4f} ms; pass floor kernel {t['d']:.4f} ms, "
           f"plain {t['d_plain']:.4f} ms")
-    return max(err_a, *errs_b.values()), err_d, t
+    return err_a, max(errs_b.values()), err_d, t
 
 
 def phase_probe(torch, mw, rowsort):
@@ -257,7 +259,7 @@ def phase_probe(torch, mw, rowsort):
         "D pass floor (66 passes)": _time_ms(
             torch, lambda: rowsort.pass_floor(x), reps=10),
     }
-    launches = rowsort.PASS_FLOOR_LAUNCHES
+    launches = rowsort.LAUNCHES, rowsort.PASS_FLOOR_LAUNCHES
     print("probe (ns/element over " f"{n} int32 elements): " + "; ".join(
         f"{name} {ms * 1e6 / n:.4f}" for name, ms in ns.items()))
     return launches
@@ -574,14 +576,18 @@ def phase_setop_rows(torch, optree, rowsort, db_a, db_b):
     got = rowsort.sort_rows(keys, values, ids, 21)
     want = rowsort.sort_rows_plain(keys, values, ids, 21)
     torch.cuda.synchronize()
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError("set-op rows: kernel differs from plain")
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got,
+                                                                     want))
+    if err:
+        raise AssertionError(f"set-op rows: kernel differs from plain "
+                             f"(max abs err {err})")
     ms = _time_ms(torch, lambda: rowsort.sort_rows(keys, values, ids, 21))
     plain = _time_ms(torch, lambda: rowsort.sort_rows_plain(
         keys, values, ids, 21))
     R, L = values.shape
     print(f"set-op rows (union-sum, buckets {group[0]}..{group[-1]}, R={R} "
           f"L={L}): kernel {ms:.4f} ms, plain {plain:.4f} ms, equal")
+    return err, ms, plain, f"{R}x{L} k=21"
 
 
 def main():
@@ -603,8 +609,8 @@ def main():
     phase_build({"extract.cu": extract_cuda, "rowsort.cu": rowsort}, native)
     max_err, ms, plain_ms = phase_kernel_parity(torch, km, ext,
                                                 extract_cuda)
-    err_b, err_d, rt = phase_rowsort_parity(torch, mw, rowsort)
-    floor_launches = phase_probe(torch, mw, rowsort)
+    err_a, err_b, err_d, rt = phase_rowsort_parity(torch, mw, rowsort)
+    i32_launches, floor_launches = phase_probe(torch, mw, rowsort)
     workdir = tempfile.mkdtemp(prefix="meryl_torch_smoke_")
     try:
         launches, genome, db_a = phase_main_path(
@@ -612,7 +618,8 @@ def main():
         phase_hatches(counter, workdir)
         sort_launches, db_b = phase_setops(torch, cli, optree, rowsort,
                                            MerylDB, genome, db_a, workdir)
-        phase_setop_rows(torch, optree, rowsort, db_a, db_b)
+        err_rows, rows_ms, rows_plain, rows_shape = phase_setop_rows(
+            torch, optree, rowsort, db_a, db_b)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     probe = "scripts/probe_r4_pallas_sort.py"
@@ -622,12 +629,18 @@ def main():
          "replaces": "meryl_tpu/ops/extract_pallas.py:136",
          "launches": launches, "max_abs_err": max_err, "ms": ms,
          "plain_ms": plain_ms, "path": "count"},
-        {"name": "rowsort_bitonic", "route": "cuda",
+        {"name": "rowsort_bitonic_keys", "route": "cuda",
          "source": "meryl_tpu_torch/csrc/rowsort.cu",
          "replaces": f"{probe}:69",
-         "launches": sort_launches, "max_abs_err": err_b, "ms": rt["b"],
-         "plain_ms": rt["b_plain"], "path": "set operations",
-         "shape": f"{SETOP_ROWS}x{SETOP_LEN} k=21"},
+         "launches": sort_launches, "max_abs_err": max(err_b, err_rows),
+         "ms": rows_ms, "plain_ms": rows_plain, "path": "set operations",
+         "shape": rows_shape},
+        {"name": "rowsort_bitonic_i32", "route": "cuda",
+         "source": "meryl_tpu_torch/csrc/rowsort.cu",
+         "replaces": f"{probe}:69",
+         "launches": i32_launches, "max_abs_err": err_a, "ms": rt["a"],
+         "plain_ms": rt["a_plain"], "path": "probe",
+         "shape": f"{PROBE_ROWS}x{PROBE_LEN}"},
         {"name": "rowsort_pass_floor", "route": "cuda",
          "source": "meryl_tpu_torch/csrc/rowsort.cu",
          "replaces": f"{probe}:94",

@@ -13,6 +13,16 @@ Three wrappers, each with a plain torch version beside it:
   * pass_floor(x): 66 stride-1 compare-exchange passes over int32 rows,
     so each (even, odd) pair ends sorted -- the network's depth floor.
 
+The bitonic kernel (csrc/rowsort.cu, one CTA a row) runs the
+all-ascending bitonic network: each thread holds 16 positions of the
+row in registers, strides below 16 run inside the thread, strides up to
+256 by warp shuffles, and a stage above 512 goes through shared memory
+once (two barriers).  A row is not padded to a power of two: positions
+past L act as +inf that never move, so they are neither loaded, stored
+nor sorted.  For the set-op keys each entry carries its column, ties
+compare on it (so the order is the stable one), and the kernel gathers
+both payloads by it in the same launch.
+
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel from csrc/rowsort.cu or raises.  A row longer than
 MAX_ROW never reaches the kernel: the set-op packer splits rows finer
@@ -28,7 +38,7 @@ import torch
 from .. import _build
 from . import multiword as mw
 
-MAX_ROW = 8192          # longest row one CTA sorts in shared memory
+MAX_ROW = 8192          # longest row one CTA sorts (= csrc/rowsort.cu)
 FLOOR_PASSES = 66       # the probe's 66 = 11 * 12 / 2 passes at L = 2048
 
 # launches of the CUDA kernels since the last reset (set to 0 to reset):

@@ -93,11 +93,26 @@ def _rows(seed, R, L, lo=-(1 << 31), hi=1 << 31):
                                          dtype=np.int64).astype(np.int32))
 
 
+def _pattern_rows(seed, R, L, span):
+    """Random int32 rows in [-span, span), or every entry equal, or each
+    row strictly descending from INT32_MAX (the value of the kernel's
+    virtual pads)."""
+    if span == "equal":
+        return torch.full((R, L), -3, dtype=torch.int32)
+    if span == "descending":
+        top = (1 << 31) - 1
+        return torch.arange(top, top - L, -1,
+                            dtype=torch.int64).to(torch.int32).repeat(R, 1)
+    return _rows(seed, R, L, -span, span)
+
+
 @pytest.mark.parametrize("R,L", [(3, 1), (5, 7), (64, 2048), (4, 3000),
-                                 (8, rowsort.MAX_ROW)])
-@pytest.mark.parametrize("span", [1 << 31, 5])
+                                 (8, rowsort.MAX_ROW), (6, 33), (5, 2047),
+                                 (4, 3072), (3, 4097), (2, 8191)])
+@pytest.mark.parametrize("span", [1 << 31, 5, "equal", "descending"])
 def test_bitonic_rows_matches_plain(cuda, R, L, span):
-    x = _rows(R * L + span, R, L, -span, span).to(cuda)
+    seed = R * L + (span if isinstance(span, int) else 0)
+    x = _pattern_rows(seed, R, L, span).to(cuda)
     before = rowsort.LAUNCHES
     got = rowsort.bitonic_rows(x)
     torch.cuda.synchronize()
@@ -134,11 +149,58 @@ def _set_rows(seed, R, L, k):
                                                                 ids)]
 
 
+def _pattern_set_rows(seed, R, L, k, pattern):
+    """Set-op rows of one pattern: "random" (_set_rows), "equal" (every
+    key the same), "descending" (distinct keys, each row reversed), or
+    "sentinel" (as the packer builds them: the all-ones k-mer in both
+    inputs, input ids 0 and 1, then sentinel padding with value 0 and
+    id 2; at k = 16 and 32 the two have the same words)."""
+    if pattern == "random":
+        return _set_rows(seed, R, L, k)
+    rng = np.random.default_rng(seed)
+    nw = mw.num_words(k)
+    vals = rng.integers(0, 1 << 32, size=(R, L))
+    ids = rng.integers(0, 3, size=(R, L)).astype(np.int32)
+    if pattern == "equal":
+        key = np.full((R, L, nw), -5, np.int64)
+    elif pattern == "descending":
+        key = np.zeros((R, L, nw), np.int64)
+        key[..., -1] = np.arange(L, 0, -1) * 977 - (1 << 40)
+    else:
+        ones = (1 << (2 * k)) - 1
+        allones = mw.from_hilo(np.array([ones >> 64], np.uint64),
+                               np.array([ones & ((1 << 64) - 1)], np.uint64),
+                               k)[0]
+        pool = rng.integers(-(1 << 63), (1 << 63) - 1, size=(L, nw))
+        key = np.repeat(pool[None], R, axis=0)
+        key[:, rng.random(L) < 0.3] = allones
+        n_real = (L * 2) // 3
+        key[:, n_real:] = np.array(mw.sentinel_words(k), np.int64)
+        vals[:, n_real:] = 0
+        ids[:, :n_real] = rng.integers(0, 2, size=(R, n_real))
+        ids[:, n_real:] = 2
+    if nw == 1:
+        key = key[..., 0]
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in (key, vals,
+                                                                ids)]
+
+
+_SORT_ROW_CASES = [
+    pytest.param(R, L, "random", id=f"{R}-{L}")
+    for R, L in [(3, 1), (5, 300), (16, 5120), (4, rowsort.MAX_ROW),
+                 (6, 33), (5, 2047), (4, 3072), (3, 4097), (2, 8191)]
+] + [
+    pytest.param(R, L, pattern, id=f"{R}-{L}-{pattern}")
+    for pattern in ("equal", "descending", "sentinel")
+    for R, L in [(6, 33), (4, 3072), (2, 8191)]
+]
+
+
 @pytest.mark.parametrize("k", [16, 21, 32, 33, 64])
-@pytest.mark.parametrize("R,L", [(3, 1), (5, 300), (16, 5120),
-                                 (4, rowsort.MAX_ROW)])
-def test_sort_rows_matches_plain(cuda, k, R, L):
-    key, vals, ids = (t.to(cuda) for t in _set_rows(k * L, R, L, k))
+@pytest.mark.parametrize("R,L,pattern", _SORT_ROW_CASES)
+def test_sort_rows_matches_plain(cuda, k, R, L, pattern):
+    key, vals, ids = (t.to(cuda) for t in _pattern_set_rows(
+        k * L, R, L, k, pattern))
     before = rowsort.LAUNCHES
     got = rowsort.sort_rows(key, vals, ids, k)
     torch.cuda.synchronize()
@@ -146,6 +208,8 @@ def test_sort_rows_matches_plain(cuda, k, R, L):
     want = rowsort.sort_rows_plain(key, vals, ids, k)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+    if pattern == "equal":              # the identity permutation
+        assert torch.equal(got[1], vals) and torch.equal(got[2], ids)
 
 
 def test_rowsort_rejects_bad_input(cuda):
