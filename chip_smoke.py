@@ -9,7 +9,10 @@ Phases, each printing its lines; any failure exits non-zero:
      and the native host library, from the sources in this checkout
   3. extract parity: the extraction kernel against its plain PyTorch
      version at the production chunk (2^22 codes), every k class and
-     mode, with timings at k=21
+     mode; then, at k=21 and 33 canonical and k=64 "both", the kernel
+     alone (raw launches into preallocated outputs, rotating over more
+     output bytes than the L2 holds), the call as the count path makes
+     it, the bound (bytes moved over 3.35 TB/s) and the share of it
   4. rowsort parity: the bitonic row sort on int32 rows (the probe's
      shape, 2^13 rows of 2048) and on synthetic set-op rows (256 rows of
      5120, k = 16, 21, 32, 33: keys shared by two inputs, sentinel
@@ -56,6 +59,10 @@ COVERAGE = 15
 SNP_RATE = 0.001
 PROBE_ROWS, PROBE_LEN, PROBE_STEPS = 1 << 13, 2048, 2
 SETOP_ROWS, SETOP_LEN = 256, 5120
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
+# H100 SXM float32 rate outside the tensor cores (NVIDIA's data sheet);
+# no int32 rate is published, and the pass floor's min/max are int32
+ALU_OPS_PER_S = 67e12
 
 
 def phase_env(torch):
@@ -86,35 +93,43 @@ def phase_build(kernel_modules, native):
 
 
 def _time_ms(torch, fn, reps=20):
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    """ms a call of fn: CUDA events over reps calls after a warm-up."""
+    from meryl_tpu_torch.tools.ab_extract import time_calls
+    return time_calls(fn, reps)[0]
 
 
-def phase_kernel_parity(torch, km, ext, extract_cuda):
-    """Kernel against the plain version on the card, same inputs."""
-    rng = np.random.default_rng(SEED)
-    codes = rng.integers(0, 4, size=CHUNK).astype(np.uint8)
-    codes[rng.integers(0, CHUNK, size=CHUNK // 150)] = 255  # separators
-    for s in rng.integers(0, CHUNK - 50, size=200):
-        codes[s:s + int(rng.integers(1, 40))] = 255          # N runs
-    codes[CHUNK - 1000:] = 255                               # n_real < L
-    packed2, exc, n_real = km.pack_codes_2bit(codes)
+def _bound_ms(nbytes, ops=0):
+    """The least time for the work: bytes over the memory rate, or
+    operations over the ALU rate, whichever is larger -> (ms, by)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _extract_bytes(p, e, L, k, mode):
+    """Bytes the extraction must move: the packed words, the exception
+    entries inside [0, L) (the padding is never needed), the keys and
+    the valid bytes."""
+    n_exc = int((e < L).sum())
+    words = (2 if mode == "both" else 1) * (1 if k <= 32 else 2)
+    return p.numel() * 4 + n_exc * 4 + words * 8 * L + L
+
+
+def phase_kernel_parity(torch, ext, extract_cuda, ab_extract):
+    """Kernel against the plain version on the card, same inputs; then
+    its times beside its bound.  The chunk has a separator every ~150
+    codes, 200 N runs and a trailing separator run (n_real < L)."""
+    packed2, exc, n_real = ab_extract.chunk_wire(CHUNK, SEED)
     dev = torch.device("cuda")
     p = torch.from_numpy(packed2.view(np.int32)).to(dev)
     e = torch.from_numpy(exc).to(dev)
     max_err = 0
     for k in KS:
         for mode in MODES:
+            before = extract_cuda.LAUNCHES
             got = extract_cuda.extract_kmers_packed(p, e, n_real, k, mode)
+            if extract_cuda.LAUNCHES != before + 1:
+                raise AssertionError("an extraction call is not one launch")
             want = ext.extract_kmers_packed(p, e, n_real, k, mode)
             torch.cuda.synchronize()
             if not torch.equal(got[-1], want[-1]):
@@ -129,16 +144,30 @@ def phase_kernel_parity(torch, km, ext, extract_cuda):
                     raise AssertionError(
                         f"keys differ at {int(bad.sum())} valid "
                         f"positions: k={k} {mode}")
-    k, mode = 21, "canonical"
-    ms = _time_ms(torch, lambda: extract_cuda.extract_kmers_packed(
-        p, e, n_real, k, mode))
-    plain_ms = _time_ms(torch, lambda: ext.extract_kmers_packed(
-        p, e, n_real, k, mode))
     print(f"extract parity: {len(KS) * len(MODES)} (k, mode) cases equal at "
           f"L={CHUNK} (n_real={n_real}, {int((exc < CHUNK).sum())} "
-          f"exceptions); k=21 canonical kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
-    return max_err, ms, plain_ms
+          f"exceptions in a list of {len(exc)}), one launch a call")
+    times = {}
+    for k, mode in ab_extract.TIMED:
+        # raw launches of the C entry point into preallocated outputs,
+        # more than the L2 holds: no Python checks, no allocation
+        alone, host = ab_extract.time_alone(
+            extract_cuda._lib().mt_extract_packed, p, e, n_real, k, mode)
+        call, call_host = ab_extract.time_calls(
+            lambda: extract_cuda.extract_kmers_packed(p, e, n_real, k, mode))
+        plain = _time_ms(torch, lambda: ext.extract_kmers_packed(
+            p, e, n_real, k, mode))
+        nbytes = _extract_bytes(p, e, CHUNK, k, mode)
+        bound, by = _bound_ms(nbytes)
+        times[(k, mode)] = dict(alone=alone, call=call, plain=plain,
+                                bound=bound, by=by)
+        print(f"extract k={k} {mode}: kernel alone {alone:.4f} ms (host "
+              f"{host:.4f} ms a raw launch), call {call:.4f} ms (host "
+              f"{call_host:.4f} ms a call), plain "
+              f"{plain:.4f} ms, bound {bound:.4f} ms ({nbytes} B over "
+              f"3.35 TB/s), kernel alone at {100 * bound / alone:.1f} % "
+              f"of the bound, call at {100 * bound / call:.1f} %")
+    return max_err, times
 
 
 def _probe_rows(torch, rng, rows):
@@ -222,6 +251,7 @@ def phase_rowsort_parity(torch, mw, rowsort):
     t = {
         "a": _time_ms(torch, lambda: rowsort.bitonic_rows(x)),
         "a_plain": _time_ms(torch, lambda: rowsort.bitonic_rows_plain(x)),
+        "a_library": _time_ms(torch, lambda: torch.sort(x, dim=-1)),
         "b": _time_ms(torch, lambda: rowsort.sort_rows(key, vals, ids, 21)),
         "b_plain": _time_ms(torch, lambda: rowsort.sort_rows_plain(
             key, vals, ids, 21)),
@@ -232,10 +262,18 @@ def phase_rowsort_parity(torch, mw, rowsort):
           f"to torch.sort; set-op rows ({SETOP_ROWS} x {SETOP_LEN}, "
           f"k = 16 21 32 33) equal to the plain stable sort, payloads "
           f"included; pass floor equal to its plain version")
+    # the int32 sort's bound counts n log2(L) compares, the pass floor's
+    # its 66 passes of a min and a max on every pair: the work its
+    # kernel does, though the passes after the first change nothing
+    n, io_bytes = x.numel(), 2 * x.numel() * x.element_size()
+    t["a_bound"] = _bound_ms(io_bytes, n * np.log2(PROBE_LEN))
+    t["d_bound"] = _bound_ms(io_bytes, 66 * n)
     print(f"rowsort times: bitonic int32 kernel {t['a']:.4f} ms, plain "
-          f"{t['a_plain']:.4f} ms; set-op rows k=21 kernel {t['b']:.4f} ms, "
-          f"plain {t['b_plain']:.4f} ms; pass floor kernel {t['d']:.4f} ms, "
-          f"plain {t['d_plain']:.4f} ms")
+          f"{t['a_plain']:.4f} ms, torch.sort {t['a_library']:.4f} ms, "
+          f"bound {t['a_bound'][0]:.4f} ms ({t['a_bound'][1]}); set-op rows "
+          f"k=21 kernel {t['b']:.4f} ms, plain {t['b_plain']:.4f} ms; pass "
+          f"floor kernel {t['d']:.4f} ms, plain {t['d_plain']:.4f} ms, bound "
+          f"{t['d_bound'][0]:.4f} ms ({t['d_bound'][1]})")
     return err_a, max(errs_b.values()), err_d, t
 
 
@@ -584,10 +622,17 @@ def phase_setop_rows(torch, optree, rowsort, db_a, db_b):
     ms = _time_ms(torch, lambda: rowsort.sort_rows(keys, values, ids, 21))
     plain = _time_ms(torch, lambda: rowsort.sort_rows_plain(
         keys, values, ids, 21))
+    library = _time_ms(torch, lambda: torch.sort(keys, dim=-1, stable=True))
     R, L = values.shape
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in (keys, values,
+                                                            ids))
+    bound, by = _bound_ms(nbytes)
     print(f"set-op rows (union-sum, buckets {group[0]}..{group[-1]}, R={R} "
-          f"L={L}): kernel {ms:.4f} ms, plain {plain:.4f} ms, equal")
-    return err, ms, plain, f"{R}x{L} k=21"
+          f"L={L}): kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.sort of "
+          f"the keys alone {library:.4f} ms, bound {bound:.4f} ms ({by}), "
+          f"equal")
+    return dict(err=err, ms=ms, plain=plain, library=library, bound=bound,
+                by=by, shape=f"{R}x{L} k=21")
 
 
 def main():
@@ -597,18 +642,17 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from meryl_tpu import kmer as km
-    from meryl_tpu import native
-    from meryl_tpu.db import MerylDB
-    from meryl_tpu_torch import cli, counter, optree
+    from meryl_tpu_torch import cli, counter, native, optree
+    from meryl_tpu_torch.db import MerylDB
     from meryl_tpu_torch.ops import accum, extract_cuda, rowsort
     from meryl_tpu_torch.ops import extract as ext
     from meryl_tpu_torch.ops import multiword as mw
+    from meryl_tpu_torch.tools import ab_extract
 
     phase_env(torch)
     phase_build({"extract.cu": extract_cuda, "rowsort.cu": rowsort}, native)
-    max_err, ms, plain_ms = phase_kernel_parity(torch, km, ext,
-                                                extract_cuda)
+    max_err, ext_t = phase_kernel_parity(torch, ext, extract_cuda,
+                                         ab_extract)
     err_a, err_b, err_d, rt = phase_rowsort_parity(torch, mw, rowsort)
     i32_launches, floor_launches = phase_probe(torch, mw, rowsort)
     workdir = tempfile.mkdtemp(prefix="meryl_torch_smoke_")
@@ -618,35 +662,41 @@ def main():
         phase_hatches(counter, workdir)
         sort_launches, db_b = phase_setops(torch, cli, optree, rowsort,
                                            MerylDB, genome, db_a, workdir)
-        err_rows, rows_ms, rows_plain, rows_shape = phase_setop_rows(
-            torch, optree, rowsort, db_a, db_b)
+        rows = phase_setop_rows(torch, optree, rowsort, db_a, db_b)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     probe = "scripts/probe_r4_pallas_sort.py"
+    x21 = ext_t[(21, "canonical")]
     print(json.dumps({"kernels": [
         {"name": "extract", "route": "cuda",
          "source": "meryl_tpu_torch/csrc/extract.cu",
          "replaces": "meryl_tpu/ops/extract_pallas.py:136",
-         "launches": launches, "max_abs_err": max_err, "ms": ms,
-         "plain_ms": plain_ms, "path": "count"},
+         "launches": launches, "max_abs_err": max_err, "ms": x21["alone"],
+         "plain_ms": x21["plain"], "bound_ms": x21["bound"],
+         "bound_by": x21["by"], "library_ms": None, "call_ms": x21["call"],
+         "path": "count", "shape": f"{CHUNK} codes k=21 canonical"},
         {"name": "rowsort_bitonic_keys", "route": "cuda",
          "source": "meryl_tpu_torch/csrc/rowsort.cu",
          "replaces": f"{probe}:69",
-         "launches": sort_launches, "max_abs_err": max(err_b, err_rows),
-         "ms": rows_ms, "plain_ms": rows_plain, "path": "set operations",
-         "shape": rows_shape},
+         "launches": sort_launches, "max_abs_err": max(err_b, rows["err"]),
+         "ms": rows["ms"], "plain_ms": rows["plain"],
+         "bound_ms": rows["bound"], "bound_by": rows["by"],
+         "library_ms": rows["library"], "path": "set operations",
+         "shape": rows["shape"]},
         {"name": "rowsort_bitonic_i32", "route": "cuda",
          "source": "meryl_tpu_torch/csrc/rowsort.cu",
          "replaces": f"{probe}:69",
          "launches": i32_launches, "max_abs_err": err_a, "ms": rt["a"],
-         "plain_ms": rt["a_plain"], "path": "probe",
-         "shape": f"{PROBE_ROWS}x{PROBE_LEN}"},
+         "plain_ms": rt["a_plain"], "bound_ms": rt["a_bound"][0],
+         "bound_by": rt["a_bound"][1], "library_ms": rt["a_library"],
+         "path": "probe", "shape": f"{PROBE_ROWS}x{PROBE_LEN}"},
         {"name": "rowsort_pass_floor", "route": "cuda",
          "source": "meryl_tpu_torch/csrc/rowsort.cu",
          "replaces": f"{probe}:94",
          "launches": floor_launches, "max_abs_err": err_d, "ms": rt["d"],
-         "plain_ms": rt["d_plain"], "path": "probe",
-         "shape": f"{PROBE_ROWS}x{PROBE_LEN}"}]}))
+         "plain_ms": rt["d_plain"], "bound_ms": rt["d_bound"][0],
+         "bound_by": rt["d_bound"][1], "library_ms": None,
+         "path": "probe", "shape": f"{PROBE_ROWS}x{PROBE_LEN}"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,10 +2,13 @@
 path, for one NVIDIA Hopper GPU.
 
 `meryl count` on one device (FASTA/FASTQ in, meryl DB out) runs as
-plain PyTorch around one hand-written CUDA kernel (k-mer extraction,
-csrc/extract.cu).  The JAX package meryl_tpu stays the reference; its
-JAX-free host modules (kmer, db, io.sequence, native) are shared, and
-nothing in this package imports JAX.
+plain PyTorch around a hand-written CUDA kernel (k-mer extraction,
+csrc/extract.cu); the set operations sort their rows with another
+(csrc/rowsort.cu).  The JAX package meryl_tpu stays the reference.
+This package keeps its own copies of the reference's JAX-free host
+modules (kmer, resources, io/, native, db, histogram, reports) and
+imports nothing of meryl_tpu and nothing of JAX: importing meryl_tpu
+would import jax where it is installed (meryl_tpu/__init__.py).
 
 Every entry point takes an explicit `device`.  "cuda" raises when
 CUDA is absent; the CPU runs only when asked for (device="cpu").

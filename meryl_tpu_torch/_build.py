@@ -40,28 +40,29 @@ def _nvcc() -> str:
                        "kernels of meryl_tpu_torch")
 
 
-def lib_path(name: str) -> str:
-    """Path of the built library for csrc/<name>.cu at its current
-    source."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+def lib_path(src: str) -> str:
+    """Path of the built library for the CUDA source file `src` at its
+    current content."""
+    with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless its library is current; -> path.
-    Raises RuntimeError with nvcc's stderr when the build fails."""
-    out = lib_path(name)
+def build(src: str) -> str:
+    """Compile the CUDA source file `src` unless its library is current;
+    -> path.  Raises RuntimeError with nvcc's stderr when the build
+    fails."""
+    out = lib_path(src)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC, name + ".cu")]
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                       capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed ({r.returncode}) building "
-                           f"{name}.cu:\n{r.stderr}")
+                           f"{src}:\n{r.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     return out
 
@@ -74,5 +75,6 @@ def load(name: str) -> ctypes.CDLL:
     with lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(build(name))
+            lib = _libs[name] = ctypes.CDLL(
+                build(os.path.join(CSRC, name + ".cu")))
         return lib

@@ -33,10 +33,9 @@ import shutil
 import sys
 import tempfile
 
-from meryl_tpu import reports
-from meryl_tpu.db import MerylDB, is_meryl_db
-from meryl_tpu.histogram import MerylHistogram
-
+from . import reports
+from .db import MerylDB, is_meryl_db
+from .histogram import MerylHistogram
 from .optree import (COUNT_OPS, NEEDS_CONSTANT, NEEDS_THRESHOLD, DBInput,
                      OpNode, SeqInput, _node_k, execute_compare,
                      execute_root, resolve_threshold)
@@ -297,7 +296,7 @@ def main(argv=None) -> int:
         print(MerylDB.open(argv[1]).dump_index())
         return 0
     if argv[0] == "dumpFile":
-        from meryl_tpu.reports import _write_text, format_kmer_lines
+        from .reports import _write_text, format_kmer_lines
         path = argv[1]
         db = MerylDB.open(os.path.dirname(path))
         ff = int(os.path.basename(path).split(".")[0], 16)

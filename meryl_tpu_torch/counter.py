@@ -8,8 +8,8 @@ set once.  The exactness hatches (cell overflow, accumulator capacity)
 finish on the host sort path: per-chunk sort + run starts on the
 device, run lengths and a k-way merge on the host.
 
-Host modules are shared with meryl_tpu (kmer, db, io.sequence, native);
-nothing here imports JAX.
+The host modules (kmer, db, io.sequence, native) are the port's own
+copies of meryl_tpu's; nothing here imports JAX or meryl_tpu.
 """
 
 from __future__ import annotations
@@ -20,11 +20,10 @@ import time as _time
 import numpy as np
 import torch
 
-from meryl_tpu import kmer as km
-from meryl_tpu.db import MerylDB
-from meryl_tpu.io.sequence import SEP, SequenceChunker
-
+from . import kmer as km
 from . import resolve_device
+from .db import MerylDB
+from .io.sequence import SEP, SequenceChunker
 from .ops import accum
 from .ops import count as cnt
 from .ops import extract_cuda
@@ -106,7 +105,7 @@ def merge_runs(runs):
         hi, lo, c = runs[0]
         return hi, lo, np.minimum(c, km.VALUE_MAX).astype(np.uint32)
 
-    from meryl_tpu import native
+    from . import native
     if native.available():
         lib = native.get_lib()
         if len(runs) > 2 and hasattr(lib, "mt_merge_kway"):
@@ -684,7 +683,7 @@ def count_to_arrays(paths, k: int, mode: str = "canonical",
 def count_to_db(paths, out_path: str, k: int, mode: str = "canonical",
                 hpc: bool = False, chunk_len: int | None = None,
                 progress=None, device="cuda") -> MerylDB:
-    """Count to a meryl DB (written by the shared meryl_tpu.db)."""
+    """Count to a meryl DB (written by the port's copy of db.py)."""
     hi, lo, counts = count_to_arrays(paths, k, mode=mode, hpc=hpc,
                                      chunk_len=chunk_len,
                                      progress=progress, device=device)

@@ -18,8 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from meryl_tpu.kmer import num_planes
-
+from ..kmer import num_planes
 from . import multiword as mw
 
 INVALID_CODE = 255

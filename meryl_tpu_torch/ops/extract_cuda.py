@@ -7,7 +7,8 @@ kernel in csrc/extract.cu, or raises; on a CPU tensor it runs the plain
 version in ops/extract.py.  The kernel replaces the Pallas `_kernel`
 (extract_pallas.py:44-107, launched at :136) and fuses the wire unpack
 of meryl_tpu/ops/extract.py:216-239; csrc/extract.cu says what bounds
-it on the card.
+it on the card.  A call is one kernel launch and allocates only its
+outputs.
 """
 
 from __future__ import annotations
@@ -26,14 +27,20 @@ LAUNCHES = 0
 _MODE_ID = {"canonical": 0, "forward": 1, "reverse": 2, "both": 3}
 
 
-def _lib():
-    lib = _build.load("extract")
+def entry_point(lib: ctypes.CDLL):
+    """The library's mt_extract_packed, its argtypes set."""
     fn = lib.mt_extract_packed
     if fn.argtypes is None:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        fn.argtypes = [p, p, i64, p, i64, i64, ctypes.c_int, ctypes.c_int,
+        fn.argtypes = [p, p, i64, i64, i64, ctypes.c_int, ctypes.c_int,
                        p, p, p, p]
         fn.restype = ctypes.c_int
+    return fn
+
+
+def _lib():
+    lib = _build.load("extract")
+    entry_point(lib)
     return lib
 
 
@@ -48,8 +55,9 @@ def extract_kmers_packed(packed2: torch.Tensor, exc: torch.Tensor,
     "both", with the contract of ops/extract.extract_kmers_packed.
 
     packed2: (L/16,) int32 holding the uint32 code words; exc: (E,)
-    int32 exception positions (INT32_MAX padded); n_real: windows
-    starting at or past n_real - k + 1 are invalid."""
+    int32 exception positions, sorted ascending and INT32_MAX padded as
+    kmer.pack_codes_2bit makes them (the kernel searches the list);
+    n_real: windows starting at or past n_real - k + 1 are invalid."""
     if packed2.device.type == "cpu":
         return ext.extract_kmers_packed(packed2, exc, n_real, k, mode)
     if packed2.device.type != "cuda":
@@ -69,25 +77,21 @@ def _launch(packed2, exc, n_real, k, mode):
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 1-d int32 "
                              f"tensor, got {t.dtype} {tuple(t.shape)}")
-        if t.device != packed2.device:
-            raise ValueError(f"{name} is on {t.device}, packed2 on "
-                             f"{packed2.device}")
     dev = packed2.device
+    if exc.device != dev:
+        raise ValueError(f"exc is on {exc.device}, packed2 on {dev}")
     L = packed2.shape[0] * 16
     shape = (L,) if mw.num_words(k) == 1 else (L, 2)
     out0 = torch.empty(shape, dtype=torch.int64, device=dev)
     out1 = torch.empty(shape, dtype=torch.int64, device=dev) \
         if mode == "both" else None
     valid = torch.empty(L, dtype=torch.bool, device=dev)
-    bitmap = torch.zeros((L + 31) // 32, dtype=torch.int32, device=dev)
-    lib = _lib()
+    fn = _lib().mt_extract_packed
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mt_extract_packed(
-            packed2.data_ptr(), exc.data_ptr(), exc.numel(),
-            bitmap.data_ptr(), L, n_real, k, _MODE_ID[mode],
-            out0.data_ptr(), out1.data_ptr() if out1 is not None else None,
-            valid.data_ptr(), stream)
+        rc = fn(packed2.data_ptr(), exc.data_ptr(), exc.numel(), L, n_real,
+                k, _MODE_ID[mode], out0.data_ptr(),
+                out1.data_ptr() if out1 is not None else None,
+                valid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"extract kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

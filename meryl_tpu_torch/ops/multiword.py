@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from meryl_tpu import kmer as km
+from .. import kmer as km
 
 FLIP = -(1 << 63)          # int64 with only bit 63 set
 _U64 = (1 << 64) - 1

@@ -6,7 +6,8 @@ Every node maps a group of 6-bit-prefix buckets' sorted unique (kmer,
 value) arrays to new arrays through one batched device call
 (ops/setops.py).  Buckets are processed in ascending prefix order, so
 printed output is globally sorted.  DB reading and writing, the
-reports and the histogram are meryl_tpu's JAX-free host modules.
+reports and the histogram are the port's copies of meryl_tpu's
+JAX-free host modules.
 """
 
 from __future__ import annotations
@@ -18,9 +19,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from meryl_tpu import kmer as km
-from meryl_tpu.db import NUM_FILES, MerylDB, MerylDBWriter
-
+from . import kmer as km
+from .db import NUM_FILES, MerylDB, MerylDBWriter
 from .ops import multiword as mw
 from .ops import rowsort, setops
 
@@ -348,7 +348,7 @@ class BucketEvaluator:
 
 def _bucket_entry_estimates(node: OpNode) -> np.ndarray:
     """Per-bucket input entry estimates from leaf DB file sizes."""
-    from meryl_tpu.db import bucket_name
+    from .db import bucket_name
     est = np.zeros(NUM_FILES, np.int64)
 
     def walk(n):
@@ -398,11 +398,11 @@ def execute_root(node: OpNode, k: int, *, device="cuda", out=None,
                                multiset=node_output_multiset(node))
     pf = None
     if node.print_path is not None:
-        from meryl_tpu.io.sequence import open_output
+        from .io.sequence import open_output
         pf = sys.stdout if node.print_path == "-" else \
             open_output(node.print_path)
     try:
-        from meryl_tpu.reports import print_kmers
+        from .reports import print_kmers
         for group in bucket_groups(node):
             if verbose >= 2:
                 sys.stderr.write(
@@ -412,7 +412,7 @@ def execute_root(node: OpNode, k: int, *, device="cuda", out=None,
             if verbose >= 3 and len(counts):
                 # one line per surviving kmer: a debugging aid,
                 # deliberately unbounded
-                from meryl_tpu.reports import format_kmer_lines
+                from .reports import format_kmer_lines
                 blob = format_kmer_lines(hi, lo, counts, k)
                 for line in blob.decode().splitlines():
                     sys.stderr.write(

@@ -76,9 +76,10 @@ def test_python_m_count_matches_reference(reads, monkeypatch):
 _NO_JAX = r"""
 import os, sys
 sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["meryl_tpu"] = None    # nor of the reference package
 import numpy as np
 from meryl_tpu_torch.cli import main
-from meryl_tpu.db import MerylDB, bucket_name
+from meryl_tpu_torch.db import MerylDB
 fa, out = sys.argv[1], sys.argv[2]
 seqs = [l.strip() for l in open(fa) if not l.startswith(">")]
 comp = {"A": "T", "C": "G", "G": "C", "T": "A"}
@@ -102,7 +103,7 @@ for acc in ("1", "0"):
     hi, lo, c = MerylDB.open(db).load_all()
     got = {(int(h) << 64) | int(l): int(v) for h, l, v in zip(hi, lo, c)}
     assert got == want, acc
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+assert not any(m.split(".")[0] in ("jax", "meryl_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("OK", len(want))
 """
@@ -125,36 +126,57 @@ def test_counts_with_jax_blocked(tmp_path):
     assert r.stdout.startswith("OK")
 
 
-# meryl_tpu modules that import jax at module level
-_JAX_BOUND = ("meryl_tpu.counter", "meryl_tpu.ops", "meryl_tpu.cli",
-              "meryl_tpu.optree", "meryl_tpu.lookup", "meryl_tpu.parallel",
-              "meryl_tpu.v2", "meryl_tpu.tools")
-
-
-def _imports(path):
+def _imports(path, package):
+    """Absolute names of the modules `path` imports (and of the names
+    it imports from them), relative imports resolved against
+    `package`."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for a in node.names:
                 yield a.name
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                parts = package.split(".")
+                base = ".".join(parts[:len(parts) - node.level + 1])
+                mod = f"{base}.{node.module}" if node.module else base
+            else:
+                mod = node.module
+            yield mod
             for a in node.names:
-                yield f"{node.module}.{a.name}"
+                yield f"{mod}.{a.name}"
+
+
+def _port_files():
+    """(path, package) of every Python file of the port, chip_smoke.py
+    and bin/meryl-torch."""
+    files = [(os.path.join(ROOT, "chip_smoke.py"), ""),
+             (os.path.join(ROOT, "bin", "meryl-torch"), "")]
+    for d, _, names in os.walk(PORT):
+        pkg = os.path.relpath(d, ROOT).replace(os.sep, ".")
+        files += [(os.path.join(d, n), pkg) for n in names
+                  if n.endswith(".py")]
+    return files
 
 
 def test_port_imports_no_jax():
-    files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "bin", "meryl-torch")]
-    for d, _, names in os.walk(PORT):
-        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) > 8
-    for path in files:
-        for mod in _imports(path):
-            assert not (mod == "jax" or mod.startswith("jax.")), (path, mod)
-            assert not any(mod == b or mod.startswith(b + ".")
-                           for b in _JAX_BOUND), (path, mod)
+    """Neither jax nor anything of meryl_tpu (whose __init__ imports jax
+    where it is installed): the port keeps its own host modules."""
+    files = _port_files()
+    assert len(files) > 20
+    seen = set()
+    for path, pkg in files:
+        for mod in _imports(path, pkg):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "meryl_tpu"), (path, mod)
+            seen.add(mod)
+    # the relative imports of the copied host modules resolve inside
+    # the port
+    for mod in ("meryl_tpu_torch.kmer", "meryl_tpu_torch.native",
+                "meryl_tpu_torch.resources", "meryl_tpu_torch.io.bam",
+                "meryl_tpu_torch.io.cram", "meryl_tpu_torch.db"):
+        assert mod in seen, mod
 
 
 def test_cuda_device_without_cuda_fails_clearly(reads, monkeypatch,
@@ -295,6 +317,7 @@ def test_dump_commands_match_reference(two_dbs, capsysbinary):
 _MERQURY_NO_JAX = r"""
 import contextlib, io, random, sys
 sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["meryl_tpu"] = None    # nor of the reference package
 from meryl_tpu_torch.cli import main
 K = 15
 root = sys.argv[1]
@@ -350,7 +373,7 @@ assert got_err == kmers(assembly) - rk and 1 <= len(got_err) <= K
 assert main(["intersect", solid, adb, "output", found, dev]) == 0
 completeness = len(printed(found)) / len(printed(solid))
 assert 0.97 < completeness < 1.0, completeness
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+assert not any(m.split(".")[0] in ("jax", "meryl_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("OK", len(got_err), completeness)
 """
@@ -363,5 +386,120 @@ def test_merqury_workflow_with_jax_blocked(tmp_path):
                         str(tmp_path)], capture_output=True, text=True,
                        timeout=300, cwd=ROOT,
                        env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("OK")
+
+
+_CUT_LOOSE = r"""
+import contextlib, gzip, io, os, random, struct, sys
+sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["meryl_tpu"] = None    # nor of the reference package
+from meryl_tpu_torch.cli import main
+from meryl_tpu_torch.db import MerylDB
+K = 17
+root = sys.argv[1]
+rng = random.Random(21)
+
+def reads(n):
+    out = []
+    for i in range(n):
+        s = "".join(rng.choices("ACGT", k=rng.randint(30, 160)))
+        if i % 6 == 0:
+            p = rng.randrange(len(s))
+            s = s[:p] + "N" + s[p + 1:]
+        if i % 9 == 0:
+            s += "G" * 25
+        out.append(s)
+    return out
+
+seqs_fq, seqs_bam = reads(60), reads(50)
+fq = f"{root}/reads.fq.gz"
+with gzip.open(fq, "wt") as f:
+    for i, s in enumerate(seqs_fq):
+        f.write(f"@q{i}\n{s}\n+\n{'I' * len(s)}\n")
+# a BAM of unmapped reads, written by hand (BGZF-free gzip, 4-bit bases)
+SEQ16 = "=ACMGRSVTWYHKDBN"
+bam = bytearray(b"BAM\x01")
+text = b"@HD\tVN:1.6\n"
+bam += struct.pack("<i", len(text)) + text + struct.pack("<i", 0)
+for i, s in enumerate(seqs_bam):
+    name = f"b{i}".encode() + b"\x00"
+    packed = bytearray((len(s) + 1) // 2)
+    for j, ch in enumerate(s):
+        packed[j // 2] |= SEQ16.index(ch) << (4 if j % 2 == 0 else 0)
+    rec = struct.pack("<iiBBHHHiiii", -1, -1, len(name), 0, 4680, 0, 4,
+                      len(s), -1, -1, 0) + name + bytes(packed) \
+        + b"\xff" * len(s)
+    bam += struct.pack("<i", len(rec)) + rec
+bam_path = f"{root}/reads.bam"
+with gzip.open(bam_path, "wb") as f:
+    f.write(bytes(bam))
+
+CODE = {"A": 0, "C": 1, "T": 2, "G": 3}
+COMP = {"A": "T", "C": "G", "G": "C", "T": "A"}
+
+def brute(seqs):
+    out = {}
+    for s in seqs:
+        for i in range(len(s) - K + 1):
+            w = s[i:i + K]
+            if "N" in w:
+                continue
+            rc = "".join(COMP[c] for c in reversed(w))
+            f = r = 0
+            for a, b in zip(w, rc):
+                f, r = f * 4 + CODE[a], r * 4 + CODE[b]
+            key = min(f, r)
+            out[key] = out.get(key, 0) + 1
+    return out
+
+def load(db):
+    hi, lo, c = MerylDB.open(db).load_all()
+    return {(int(h) << 64) | int(l): int(v) for h, l, v in zip(hi, lo, c)}
+
+def run(words):
+    buf = io.BytesIO()
+    out = io.TextIOWrapper(buf)
+    with contextlib.redirect_stdout(out):
+        assert main(words + ["device=cpu"]) == 0, words
+        out.flush()
+    return buf.getvalue().decode()
+
+want_a, want_b = brute(seqs_fq), brute(seqs_bam)
+for acc in ("1", "0"):             # device accumulator, host sort path
+    os.environ["MERYL_TPU_DEVICE_ACC"] = acc
+    for name, path, want in (("a", fq, want_a), ("b", bam_path, want_b)):
+        db = f"{root}/{name}{acc}.meryl"
+        run(["count", f"k={K}", path, "output", db])
+        assert load(db) == want, (name, acc)
+a, b, u = f"{root}/a1.meryl", f"{root}/b0.meryl", f"{root}/u.meryl"
+run(["union-sum", a, b, "output", u])
+want_u = {x: want_a.get(x, 0) + want_b.get(x, 0)
+          for x in set(want_a) | set(want_b)}
+assert load(u) == want_u
+printed = {}
+for line in run(["print", a]).splitlines():
+    mer, cnt = line.split("\t")
+    printed[sum(CODE[c] << (2 * (K - 1 - i)) for i, c in enumerate(mer))] \
+        = int(cnt)
+assert printed == want_a
+occ = {}
+for v in want_u.values():
+    occ[v] = occ.get(v, 0) + 1
+assert run(["histogram", u]) == "".join(f"{v}\t{occ[v]}\n" for v in sorted(occ))
+assert not any(m.split(".")[0] in ("jax", "meryl_tpu") for m in sys.modules
+               if sys.modules[m] is not None)
+print("OK", len(want_a), len(want_b), len(want_u))
+"""
+
+
+def test_port_runs_with_meryl_tpu_and_jax_blocked(tmp_path):
+    """count (device accumulator and host path) on a gzip FASTQ and a
+    BAM, a set operation, print and histogram, in a process where
+    neither meryl_tpu nor jax can be imported; every output against an
+    inline brute force."""
+    r = subprocess.run([sys.executable, "-c", _CUT_LOOSE, str(tmp_path)],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("OK")

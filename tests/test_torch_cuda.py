@@ -9,12 +9,15 @@ conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
 
-from meryl_tpu import kmer as km
 from meryl_tpu_torch import counter
+from meryl_tpu_torch import kmer as km
 from meryl_tpu_torch.ops import accum
 from meryl_tpu_torch.ops import extract as ext
 from meryl_tpu_torch.ops import extract_cuda
@@ -61,6 +64,92 @@ def test_kernel_matches_plain(cuda, k, mode, L):
     for g, w in zip(got[:-1], want[:-1]):
         assert g.shape == w.shape and g.dtype == w.dtype
         assert torch.equal(g[v], w[v])
+
+
+def _extract_consts():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "meryl_tpu_torch", "csrc", "extract.cu")
+    with open(path) as f:
+        text = f.read()
+    return [int(re.search(rf"constexpr int {n} = (\d+);", text).group(1))
+            for n in ("TILE", "HALO", "MIN_RUN")]
+
+
+TILE, HALO, MIN_RUN = _extract_consts()
+
+
+def _edge_codes(rng, L):
+    """Random codes with an exception at and around every tile edge,
+    CTA edge and halo end of the grid the kernel takes at L: one CTA a
+    MIN_RUN windows while those fit the card at once (L <= 2^18 on 132
+    SMs of four CTAs or more)."""
+    codes = rng.integers(0, 4, size=L).astype(np.uint8)
+    n_words, grid = L // 16, (L + MIN_RUN - 1) // MIN_RUN
+    for b in range(grid):
+        start = n_words * b // grid * 16
+        stop = n_words * (b + 1) // grid * 16
+        for base in range(start, stop, TILE):
+            for edge in (base, min(base + TILE, stop)):
+                for d in (-1, 0, 1, HALO - 1, HALO):
+                    if 0 <= edge + d < L:
+                        codes[edge + d] = 255
+    return codes
+
+
+def _pattern_wire(pattern, L, dev):
+    """Wires of the kernel's edges: "edges" (_edge_codes), "poly-G"
+    (the all-ones k-mer everywhere), "word-edges" (exceptions on the
+    first and last code of packed words), "twice-floor" (an exception
+    list twice kmer.pack_codes_2bit's L/64 floor)."""
+    rng = np.random.default_rng(L)
+    if pattern == "edges":
+        codes = _edge_codes(rng, L)
+    elif pattern == "poly-G":
+        codes = np.full(L, 3, np.uint8)
+        codes[[TILE - 1, L // 2 + 16]] = 255
+        codes[L - 5:] = 255
+    elif pattern == "word-edges":
+        codes = rng.integers(0, 4, size=L).astype(np.uint8)
+        codes[np.arange(15, L, 16 * 37)] = 255
+        codes[np.arange(16, L, 16 * 41)] = 255
+    else:
+        codes = rng.integers(0, 4, size=L).astype(np.uint8)
+        codes[rng.choice(L, size=(L >> 6) + 40, replace=False)] = 255
+    packed2, exc, n_real = km.pack_codes_2bit(codes)
+    if pattern == "twice-floor":
+        assert len(exc) == 2 * (L >> 6)
+    return (torch.from_numpy(packed2.view(np.int32)).to(dev),
+            torch.from_numpy(exc).to(dev), n_real)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("k", [1, 16, 21, 32, 33, 48, 64])
+@pytest.mark.parametrize("pattern,L", [("edges", 5 * 2048 + 48),
+                                       ("edges", (1 << 16) + 48),
+                                       ("poly-G", (1 << 16) + 48),
+                                       ("word-edges", 1 << 16),
+                                       ("twice-floor", 1 << 16)])
+def test_kernel_edges_match_plain(cuda, k, mode, pattern, L):
+    p, e, n_real = _pattern_wire(pattern, L, cuda)
+    got = extract_cuda.extract_kmers_packed(p, e, n_real, k, mode)
+    want = ext.extract_kmers_packed(p, e, n_real, k, mode)
+    assert torch.equal(got[-1], want[-1])
+    v = want[-1]
+    assert v.any()
+    for g, w in zip(got[:-1], want[:-1]):
+        assert torch.equal(g[v], w[v])
+
+
+@pytest.mark.parametrize("k,mode", [(21, "canonical"), (64, "both")])
+def test_kernel_allocates_only_its_outputs(cuda, k, mode):
+    p, e, n_real = _wire(9, 1 << 16, cuda)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = extract_cuda.extract_kmers_packed(p, e, n_real, k, mode)
+    torch.cuda.synchronize()
+    outs = sum(-(-t.untyped_storage().nbytes() // 512) * 512 for t in got)
+    assert torch.cuda.max_memory_allocated() - before == outs
 
 
 def test_kernel_rejects_bad_input(cuda):
