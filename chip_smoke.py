@@ -17,10 +17,15 @@ Phases, each printing its lines; any failure exits non-zero:
      shape, 2^13 rows of 2048) and on synthetic set-op rows (256 rows of
      5120, k = 16, 21, 32, 33: keys shared by two inputs, sentinel
      padding that aliases the all-ones k-mer at k = 16 and 32), and the
-     pass floor, each against its plain version, exactly, with times
+     pass floor (also on odd, short and misaligned shapes, at 66 and 0
+     passes), each against its plain version, exactly, with times; the
+     pass floor beside torch.sort of its pairs (its library yardstick)
+     and its passes sweep (the kernel alone at 1, 16, 33 and 66 passes,
+     with the least-squares slope a pass)
   5. the probe (scripts/probe_r4_pallas_sort.py's question, on the
      card): ns/element of torch.sort (A), the plain two-word sort (B),
-     the bitonic kernel (C) and the pass floor (D)
+     the bitonic kernel (C) and the pass floor (D), and whether D lies
+     below C
   6. count path: `meryl count k=21` through the CLI on a ~70 Mbase
      FASTQ generated from a seed, with the production geometry, checked
      exactly against a numpy brute force
@@ -224,7 +229,7 @@ def _setop_rows(torch, mw, rng, k):
             for a in (key, vals, ids)]
 
 
-def phase_rowsort_parity(torch, mw, rowsort):
+def phase_rowsort_parity(torch, mw, rowsort, ab_passfloor):
     rng = np.random.default_rng(SEED + 5)
     x = _probe_rows(torch, rng, PROBE_ROWS)
     got = rowsort.bitonic_rows(x)
@@ -233,8 +238,17 @@ def phase_rowsort_parity(torch, mw, rowsort):
     err_a = int((got.long() - want.long()).abs().max())
     pf = rowsort.pass_floor(x)
     pf_want = rowsort.pass_floor_plain(x)
+    pairs_sorted = torch.sort(x.view(PROBE_ROWS, PROBE_LEN // 2, 2),
+                              dim=-1).values.view(PROBE_ROWS, PROBE_LEN)
     torch.cuda.synchronize()
     err_d = int((pf.long() - pf_want.long()).abs().max())
+    if not torch.equal(pairs_sorted, pf_want):
+        raise AssertionError("torch.sort of the pairs differs from the pass "
+                             "floor's plain version")
+    # odd, short and misaligned shapes, 66 passes and 0 (raw launches of
+    # the C entry point: they do not count)
+    floor_fn = rowsort._lib().mt_pass_floor
+    ab_passfloor.check_shapes(floor_fn)
     errs_b = {}
     for k in (16, 21, 32, 33):
         key, vals, ids = _setop_rows(torch, mw, rng, k)
@@ -257,23 +271,53 @@ def phase_rowsort_parity(torch, mw, rowsort):
             key, vals, ids, 21)),
         "d": _time_ms(torch, lambda: rowsort.pass_floor(x)),
         "d_plain": _time_ms(torch, lambda: rowsort.pass_floor_plain(x)),
+        "d_library": _time_ms(torch, lambda: torch.sort(
+            x.view(PROBE_ROWS, PROBE_LEN // 2, 2), dim=-1)),
     }
     print(f"rowsort parity: bitonic int32 ({PROBE_ROWS} x {PROBE_LEN}) equal "
           f"to torch.sort; set-op rows ({SETOP_ROWS} x {SETOP_LEN}, "
           f"k = 16 21 32 33) equal to the plain stable sort, payloads "
-          f"included; pass floor equal to its plain version")
+          f"included; pass floor equal to its plain version (and to "
+          f"torch.sort of the pairs) at {PROBE_ROWS} x {PROBE_LEN} and on "
+          f"odd, short and misaligned shapes at 66 and 0 passes")
+    # the sweep: raw launches of the C entry point at several pass counts
+    # over two input sets (more than the L2 holds); every pass must cost
+    xs = [x, _probe_rows(torch, rng, PROBE_ROWS)]
+    sweep_ms, slope, icpt = ab_passfloor.sweep(floor_fn, xs)
+    t["d_alone"] = sweep_ms[rowsort.FLOOR_PASSES]
+    print("pass floor sweep (kernel alone, ms): " + ", ".join(
+        f"{p} passes {ms:.4f}" for p, ms in sweep_ms.items())
+        + f"; least-squares slope {slope * 1e3:.4f} us a pass, intercept "
+        f"{icpt:.4f} ms")
+    if not slope > 0:
+        raise AssertionError(f"the pass floor's time does not grow with "
+                             f"its passes: {sweep_ms}")
     # the int32 sort's bound counts n log2(L) compares, the pass floor's
     # its 66 passes of a min and a max on every pair: the work its
     # kernel does, though the passes after the first change nothing
     n, io_bytes = x.numel(), 2 * x.numel() * x.element_size()
     t["a_bound"] = _bound_ms(io_bytes, n * np.log2(PROBE_LEN))
     t["d_bound"] = _bound_ms(io_bytes, 66 * n)
+    # the floor of the integer issue: 66 min/max a pair-element, at 64 a
+    # clock an SM (the ALU pipe's rate for min/max) and the card's clock
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t["d_issue"] = 66 * n / (64 * sms * mhz * 1e6) * 1e3
+    print(f"pass floor integer-issue floor {t['d_issue']:.4f} ms (66 x {n} "
+          f"min/max at 64 a clock an SM, {sms} SMs, {mhz:.0f} MHz); kernel "
+          f"alone at {100 * t['d_issue'] / t['d_alone']:.1f} % of it")
     print(f"rowsort times: bitonic int32 kernel {t['a']:.4f} ms, plain "
           f"{t['a_plain']:.4f} ms, torch.sort {t['a_library']:.4f} ms, "
           f"bound {t['a_bound'][0]:.4f} ms ({t['a_bound'][1]}); set-op rows "
           f"k=21 kernel {t['b']:.4f} ms, plain {t['b_plain']:.4f} ms; pass "
-          f"floor kernel {t['d']:.4f} ms, plain {t['d_plain']:.4f} ms, bound "
-          f"{t['d_bound'][0]:.4f} ms ({t['d_bound'][1]})")
+          f"floor call {t['d']:.4f} ms (alone {t['d_alone']:.4f} ms), plain "
+          f"{t['d_plain']:.4f} ms, torch.sort of the pairs "
+          f"{t['d_library']:.4f} ms, bound {t['d_bound'][0]:.4f} ms "
+          f"({t['d_bound'][1]}), alone at "
+          f"{100 * t['d_bound'][0] / t['d_alone']:.1f} % of the bound")
     return err_a, max(errs_b.values()), err_d, t
 
 
@@ -298,8 +342,12 @@ def phase_probe(torch, mw, rowsort):
             torch, lambda: rowsort.pass_floor(x), reps=10),
     }
     launches = rowsort.LAUNCHES, rowsort.PASS_FLOOR_LAUNCHES
+    c, d = (ns[k] for k in ("C bitonic kernel 1-plane",
+                            "D pass floor (66 passes)"))
     print("probe (ns/element over " f"{n} int32 elements): " + "; ".join(
-        f"{name} {ms * 1e6 / n:.4f}" for name, ms in ns.items()))
+        f"{name} {ms * 1e6 / n:.4f}" for name, ms in ns.items())
+        + f"; the floor D is {'below' if d < c else 'NOT below'} the "
+        f"network C (D/C {d / c:.3f})")
     return launches
 
 
@@ -647,13 +695,14 @@ def main():
     from meryl_tpu_torch.ops import accum, extract_cuda, rowsort
     from meryl_tpu_torch.ops import extract as ext
     from meryl_tpu_torch.ops import multiword as mw
-    from meryl_tpu_torch.tools import ab_extract
+    from meryl_tpu_torch.tools import ab_extract, ab_passfloor
 
     phase_env(torch)
     phase_build({"extract.cu": extract_cuda, "rowsort.cu": rowsort}, native)
     max_err, ext_t = phase_kernel_parity(torch, ext, extract_cuda,
                                          ab_extract)
-    err_a, err_b, err_d, rt = phase_rowsort_parity(torch, mw, rowsort)
+    err_a, err_b, err_d, rt = phase_rowsort_parity(torch, mw, rowsort,
+                                                   ab_passfloor)
     i32_launches, floor_launches = phase_probe(torch, mw, rowsort)
     workdir = tempfile.mkdtemp(prefix="meryl_torch_smoke_")
     try:
@@ -695,8 +744,9 @@ def main():
          "replaces": f"{probe}:94",
          "launches": floor_launches, "max_abs_err": err_d, "ms": rt["d"],
          "plain_ms": rt["d_plain"], "bound_ms": rt["d_bound"][0],
-         "bound_by": rt["d_bound"][1], "library_ms": None,
-         "path": "probe", "shape": f"{PROBE_ROWS}x{PROBE_LEN}"}]}))
+         "bound_by": rt["d_bound"][1], "library_ms": rt["d_library"],
+         "alone_ms": rt["d_alone"], "path": "probe",
+         "shape": f"{PROBE_ROWS}x{PROBE_LEN}"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

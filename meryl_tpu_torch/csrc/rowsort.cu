@@ -8,7 +8,8 @@
 //     which sorts the rows of meryl_tpu/ops/setops.py _merge_sort_stage
 //     (lax.sort(..., is_stable=True) with two payloads);
 //   * roll_pass_kernel (66 identical stride-1 compare-exchange passes,
-//     the network's depth floor) -> pass_floor_kernel.
+//     the network's depth floor) -> pass_floor_flat and pass_floor_rows,
+//     registers only (their note is at "the pass floor" below).
 //
 // The network.  One CTA sorts one row of L <= MAX_ROW entries with the
 // all-ascending bitonic network on n = next_pow2(L) positions: stage
@@ -83,7 +84,8 @@ constexpr int E = 16;             // positions a thread holds in registers
 constexpr int WARP = 32;
 constexpr int W = WARP * E;       // positions a warp holds
 constexpr int MAX_THREADS = MAX_ROW / E;
-constexpr int FLOOR_THREADS = 1024;
+constexpr int FLOOR_THREADS = 256;  // a CTA of the pass floor
+constexpr int FLOOR_QUADS = 4;      // 16-byte quads a pass-floor thread holds
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(MAX_ROW / W <= 16, "a cross-warp coset holds at most 16");
 
@@ -434,23 +436,163 @@ bitonic_keys_kernel(const int64_t* __restrict__ key,
            [&](int i) { return ids[base + s.idx[pad4(i)]]; });
 }
 
-__global__ void __launch_bounds__(FLOOR_THREADS)
-pass_floor_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
-                  int L, int passes) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int32_t* s = reinterpret_cast<int32_t*>(smem);
-  const int64_t base = (int64_t)blockIdx.x * L;
-  for (int i = threadIdx.x; i < L; i += blockDim.x) s[i] = x[base + i];
-  __syncthreads();
-  for (int p = 0; p < passes; ++p) {
-    for (int t = threadIdx.x; t < L / 2; t += blockDim.x) {
-      const int32_t a = s[2 * t], b = s[2 * t + 1];
-      s[2 * t] = a < b ? a : b;
-      s[2 * t + 1] = a < b ? b : a;
-    }
-    __syncthreads();
+// ------------------------------------------------------- the pass floor
+//
+// pass_floor_flat and pass_floor_rows replace roll_pass_kernel
+// (scripts/probe_r4_pallas_sort.py:94-106): `passes` stride-1 compare-
+// exchange passes, after which each (even, odd) pair of a row is sorted.
+// On the TPU a pair lay across two lanes, so a pass was two pltpu.rolls
+// and a select.  Here a thread holds whole pairs in registers and a pass
+// is a min and a max on each: no shared memory, no barrier, no shuffle.
+//
+// What bounds it: at one pass the bytes (the rows in and out once: 134 MB,
+// 0.040 ms at 3.35 TB/s for 2^13 rows of 2048); at the probe's 66 the
+// integer issue (66 x 2^24 min/max on the ALU pipe, 64 a clock an SM:
+// ~0.07 ms on 132 SMs at 1.98 GHz; the card's min/max issue at that half
+// rate, so this is the floor).  A thread holds FLOOR_QUADS 16-byte quads
+// (two pairs each) a tile, and one trip of the pass loop runs two passes:
+// 8 * FLOOR_QUADS min/max against one increment, compare and branch.
+//
+// Every pass runs.  After the first a pass changes nothing, so a compiler
+// that saw through the loop could keep one pass.  It cannot: the count is
+// a run-time argument, the loop stays rolled (#pragma unroll 1), and after
+// each compare-exchange an empty asm volatile with "+r" operands makes the
+// pair's values opaque, so min(min(a, b), max(a, b)) is never folded,
+// inside a trip or across trips.
+//
+// Even L: no pair crosses a row, so the tensor is R * L / 2 independent
+// pairs, counted from its first element (a contiguous view can start at
+// any 4-byte offset).  A head of at most one pair brings the input, or if
+// the input starts at an odd word the output, to 16 bytes; then the
+// quads, each side moved by the widest access its alignment allows (one
+// int4, two int2 or four words); then a tail of at most one pair.  The
+// grid is at most the CTAs the card holds at once, walking tiles of
+// FLOOR_THREADS * FLOOR_QUADS quads.  Odd L: pairs restart at each row, a
+// warp takes a row with word accesses, and lane 0 copies the last element.
+//
+// The first version of this kernel ran a CTA a row with up to 1024
+// threads, the row in shared memory and a __syncthreads after each pass;
+// bound by shared-memory bandwidth, on an NVIDIA H100 80GB HBM3 at 700 W it
+// took 0.4585-0.4629 ms for 2^13 x 2048 int32 rows at 66 passes (plain
+// version 0.4930-0.4976 ms).
+
+// one compare-exchange pass over the pairs (v[2i], v[2i + 1])
+template <int N>
+__device__ __forceinline__ void floor_pass(int32_t (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 2) {
+    const int32_t lo = min(v[i], v[i + 1]), hi = max(v[i], v[i + 1]);
+    v[i] = lo;
+    v[i + 1] = hi;
+    asm volatile("" : "+r"(v[i]), "+r"(v[i + 1]));
   }
-  for (int i = threadIdx.x; i < L; i += blockDim.x) out[base + i] = s[i];
+}
+
+// `passes` passes, two a trip of the loop: the second writes back the
+// registers the first read, so a trip copies no register (with one pass
+// a trip the compiler copies each lower value back into the register the
+// loop carries, 8 moves beside 16 min/max)
+template <int N>
+__device__ __forceinline__ void floor_passes(int32_t (&v)[N], int passes) {
+#pragma unroll 1
+  for (int p = 1; p < passes; p += 2) {
+    floor_pass(v);
+    floor_pass(v);
+  }
+  if (passes & 1) floor_pass(v);
+}
+
+// the four words at p into v[0..3], V words an access (p is aligned to
+// 4 V bytes)
+template <int V>
+__device__ __forceinline__ void load_quad(const int32_t* __restrict__ p,
+                                          int32_t* v) {
+  if constexpr (V == 4) {
+    const int4 a = *reinterpret_cast<const int4*>(p);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  } else if constexpr (V == 2) {
+    const int2 a = reinterpret_cast<const int2*>(p)[0];
+    const int2 b = reinterpret_cast<const int2*>(p)[1];
+    v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = p[u];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_quad(int32_t* __restrict__ p,
+                                           const int32_t* v) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    reinterpret_cast<int2*>(p)[0] = make_int2(v[0], v[1]);
+    reinterpret_cast<int2*>(p)[1] = make_int2(v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) p[u] = v[u];
+  }
+}
+
+// Even L.  x, out: the tensor's first element.  `head` (0 or 1) pairs,
+// then `n_quads` quads, then `tail` (0 or 1) pairs; VL and VS are the
+// words a load and a store of the quads move.
+template <int VL, int VS>
+__global__ void __launch_bounds__(FLOOR_THREADS)
+pass_floor_flat(const int32_t* __restrict__ x, int32_t* __restrict__ out,
+                int head, int64_t n_quads, int tail, int passes) {
+  constexpr int64_t TILE = (int64_t)FLOOR_THREADS * FLOOR_QUADS;
+  if (blockIdx.x == 0 && threadIdx.x < 2 &&
+      (threadIdx.x == 0 ? head : tail)) {
+    const int64_t e = threadIdx.x == 0 ? 0 : 2 * head + 4 * n_quads;
+    int32_t v[2] = {x[e], x[e + 1]};
+    floor_passes(v, passes);
+    out[e] = v[0];
+    out[e + 1] = v[1];
+  }
+  const int32_t* xq = x + 2 * head;
+  int32_t* oq = out + 2 * head;
+  const int64_t tiles = (n_quads + TILE - 1) / TILE;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int32_t v[4 * FLOOR_QUADS];
+#pragma unroll
+    for (int q = 0; q < FLOOR_QUADS; ++q) {
+      const int64_t i = t * TILE + q * FLOOR_THREADS + threadIdx.x;
+      if (i < n_quads) {
+        load_quad<VL>(xq + 4 * i, v + 4 * q);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[4 * q + u] = 0;
+      }
+    }
+    floor_passes(v, passes);
+#pragma unroll
+    for (int q = 0; q < FLOOR_QUADS; ++q) {
+      const int64_t i = t * TILE + q * FLOOR_THREADS + threadIdx.x;
+      if (i < n_quads) store_quad<VS>(oq + 4 * i, v + 4 * q);
+    }
+  }
+}
+
+// Odd L: a warp a row, word accesses (a row's pairs start at alternating
+// word parities), lane 0 copies the row's last element.
+__global__ void __launch_bounds__(FLOOR_THREADS)
+pass_floor_rows(const int32_t* __restrict__ x, int32_t* __restrict__ out,
+                int64_t R, int L, int passes) {
+  constexpr int WARPS = FLOOR_THREADS / WARP;
+  const int lane = threadIdx.x % WARP;
+  for (int64_t r = (int64_t)blockIdx.x * WARPS + threadIdx.x / WARP; r < R;
+       r += (int64_t)gridDim.x * WARPS) {
+    const int32_t* xr = x + r * L;
+    int32_t* orow = out + r * L;
+    for (int j = lane; j < L / 2; j += WARP) {
+      int32_t v[2] = {xr[2 * j], xr[2 * j + 1]};
+      floor_passes(v, passes);
+      orow[2 * j] = v[0];
+      orow[2 * j + 1] = v[1];
+    }
+    if (lane == 0) orow[L - 1] = xr[L - 1];
+  }
 }
 
 // whole warps of E positions each, covering L
@@ -458,10 +600,49 @@ int sort_threads(int L) {
   return ((L + E - 1) / E + WARP - 1) / WARP * WARP;
 }
 
-int threads_for(int pairs) {
-  int t = 32;
-  while (t < pairs && t < FLOOR_THREADS) t <<= 1;
-  return t;
+// CTAs of FLOOR_THREADS that the card holds at once; any grid is right, so
+// one device's count serves every call
+template <class Kernel>
+int resident_ctas(Kernel kernel) {
+  int dev = 0, sms = 1, per_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                FLOOR_THREADS, 0);
+  return sms * per_sm > 0 ? sms * per_sm : 1;
+}
+
+// words a 16-byte quad access at `addr` may move at once: 4, 2 or 1
+int quad_words(uintptr_t addr) {
+  const int phase = (int)(addr >> 2) & 3;
+  return phase == 0 ? 4 : phase == 2 ? 2 : 1;
+}
+
+using FlatLaunch = cudaError_t (*)(const int32_t*, int32_t*, int, int64_t,
+                                   int, int, cudaStream_t);
+
+template <int VL, int VS>
+cudaError_t launch_flat(const int32_t* x, int32_t* out, int head,
+                        int64_t n_quads, int tail, int passes,
+                        cudaStream_t s) {
+  static const int ctas = resident_ctas(pass_floor_flat<VL, VS>);
+  const int64_t tile = (int64_t)FLOOR_THREADS * FLOOR_QUADS;
+  const int64_t tiles = (n_quads + tile - 1) / tile;
+  const int grid = (int)(tiles < ctas ? (tiles > 0 ? tiles : 1) : ctas);
+  pass_floor_flat<VL, VS><<<grid, FLOOR_THREADS, 0, s>>>(
+      x, out, head, n_quads, tail, passes);
+  return cudaGetLastError();
+}
+
+template <int VL>
+FlatLaunch flat_for_store(int vs) {
+  return vs == 4 ? launch_flat<VL, 4>
+                 : vs == 2 ? launch_flat<VL, 2> : launch_flat<VL, 1>;
+}
+
+FlatLaunch flat_for(int vl, int vs) {
+  return vl == 4 ? flat_for_store<4>(vs)
+                 : vl == 2 ? flat_for_store<2>(vs) : flat_for_store<1>(vs);
 }
 
 template <class Kernel>
@@ -524,18 +705,34 @@ extern "C" int mt_bitonic_keys(const void* key, const void* val,
   return (int)e;
 }
 
-// x, out: (R, L) int32.  `passes` stride-1 compare-exchange passes over
-// each row's (even, odd) pairs in shared memory.
+// x, out: (R, L) int32, each contiguous from any 4-byte address.
+// `passes` stride-1 compare-exchange passes over each row's (even, odd)
+// pairs; an odd row's last element is copied.  passes = 0 copies x.
 extern "C" int mt_pass_floor(const void* x, void* out, int64_t R, int L,
                              int passes, void* stream) {
   if (R < 0 || L < 0 || L > MAX_ROW || R > INT_MAX || passes < 0)
     return (int)cudaErrorInvalidValue;
   if (R == 0 || L == 0) return 0;
-  const size_t smem = (size_t)L * sizeof(int32_t);
-  cudaError_t e = allow_smem(pass_floor_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  pass_floor_kernel<<<(unsigned)R, threads_for(L / 2), smem,
-                      reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), static_cast<int32_t*>(out), L, passes);
-  return (int)cudaGetLastError();
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int32_t* xi = static_cast<const int32_t*>(x);
+  int32_t* oi = static_cast<int32_t*>(out);
+  if (L % 2) {
+    static const int ctas = resident_ctas(pass_floor_rows);
+    constexpr int WARPS = FLOOR_THREADS / WARP;
+    const int64_t need = (R + WARPS - 1) / WARPS;
+    pass_floor_rows<<<(int)(need < ctas ? need : ctas), FLOOR_THREADS, 0,
+                      s>>>(xi, oi, R, L, passes);
+    return (int)cudaGetLastError();
+  }
+  const int64_t pairs = R * (L / 2);
+  const uintptr_t ax = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t ao = reinterpret_cast<uintptr_t>(out);
+  // one head pair when it brings the input to 16 bytes, or the output if
+  // the input starts at an odd word
+  const int px = (int)(ax >> 2) & 3, po = (int)(ao >> 2) & 3;
+  const int head = (px == 2 || (px % 2 && po == 2)) ? 1 : 0;
+  const int64_t n_quads = (pairs - head) / 2;
+  const int tail = (int)(pairs - head - 2 * n_quads);
+  return (int)flat_for(quad_words(ax + 8 * head), quad_words(ao + 8 * head))(
+      xi, oi, head, n_quads, tail, passes, s);
 }

@@ -23,6 +23,11 @@ nor sorted.  For the set-op keys each entry carries its column, ties
 compare on it (so the order is the stable one), and the kernel gathers
 both payloads by it in the same launch.
 
+The pass floor's kernel holds whole pairs in registers (no shared
+memory, no barrier) and runs every pass it is given: for even L the
+tensor is one flat array of pairs moved in 16-byte quads where the
+alignment allows, for odd L a warp takes a row.
+
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel from csrc/rowsort.cu or raises.  A row longer than
 MAX_ROW never reaches the kernel: the set-op packer splits rows finer

@@ -210,7 +210,9 @@ def test_bitonic_rows_matches_plain(cuda, R, L, span):
 
 
 @pytest.mark.parametrize("R,L", [(2, 1), (64, 2048), (7, 999), (8, 5120),
-                                 (4, rowsort.MAX_ROW)])
+                                 (4, rowsort.MAX_ROW), (1, 2), (1, 3),
+                                 (3, 7), (5, 33), (2, rowsort.MAX_ROW - 1),
+                                 (1 << 13, 2048)])
 def test_pass_floor_matches_plain(cuda, R, L):
     x = _rows(R + L, R, L).to(cuda)
     before = rowsort.PASS_FLOOR_LAUNCHES
@@ -218,6 +220,48 @@ def test_pass_floor_matches_plain(cuda, R, L):
     torch.cuda.synchronize()
     assert rowsort.PASS_FLOOR_LAUNCHES == before + 1
     assert torch.equal(got, rowsort.pass_floor_plain(x))
+
+
+@pytest.mark.parametrize("R,L", [(5, 7), (3, 999), (4, 2047), (9, 2046),
+                                 (4, 2050), (2, rowsort.MAX_ROW - 1)])
+def test_pass_floor_misaligned_view(cuda, R, L):
+    """x = big[1:] starts L * 4 bytes into its storage: at an odd word
+    for odd L, at 8 bytes past 16 for L = 2 mod 4."""
+    big = _rows(R * L, R + 1, L).to(cuda)
+    x = big[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 == (4 * L) % 16
+    before = rowsort.PASS_FLOOR_LAUNCHES
+    got = rowsort.pass_floor(x)
+    torch.cuda.synchronize()
+    assert rowsort.PASS_FLOOR_LAUNCHES == before + 1
+    assert torch.equal(got, rowsort.pass_floor_plain(x))
+
+
+@pytest.mark.parametrize("passes", [0, 1, 2, 65])
+@pytest.mark.parametrize("R,L,xo,oo", [
+    (64, 2048, 0, 0), (3, 2048, 1, 0), (3, 2048, 2, 0), (3, 2048, 0, 1),
+    (3, 2048, 3, 2), (5, 2046, 2, 2), (1, 2, 1, 3), (1, 2, 0, 0),
+    (2, 1, 1, 1), (5, 999, 1, 2), (4, rowsort.MAX_ROW, 2, 1),
+    (3, rowsort.MAX_ROW - 1, 3, 0)])
+def test_pass_floor_entry_point(cuda, passes, R, L, xo, oo):
+    """The C entry point with the input and the output at word offsets
+    xo and oo of their storage: 0 passes copy the input, any other count
+    gives the plain result; nothing outside the output is written."""
+    n = R * L
+    xs = _rows(n + passes, 1, n + 4).to(cuda).view(-1)
+    x = xs[xo:xo + n].view(R, L)
+    os_ = torch.full((n + 4,), -7, dtype=torch.int32, device=cuda)
+    out = os_[oo:oo + n].view(R, L)
+    rc = rowsort._lib().mt_pass_floor(
+        x.data_ptr(), out.data_ptr(), R, L, passes,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(out, x if passes == 0 else rowsort.pass_floor_plain(x))
+    assert (os_[:oo] == -7).all() and (os_[oo + n:] == -7).all()
+    assert rowsort._lib().mt_pass_floor(
+        x.data_ptr(), out.data_ptr(), R, L, -1,
+        torch.cuda.current_stream().cuda_stream) != 0
 
 
 def _set_rows(seed, R, L, k):
