@@ -36,6 +36,25 @@ Phases, each printing its lines; any failure exits non-zero:
      held against a numpy brute force over the two decoded inputs; then
      the set-op row sort against its plain version on the rows the path
      packs (the first bucket group of `union-sum a b`), exactly, timed
+  9. batched count: phase 6's FASTQ again with a `memory=` that the plan
+     turns into several batches, and `threads=`; the batch DBs and the
+     manifest exist while it runs and are gone after it, the DB equals
+     phase 6's, and both the extraction kernel and the set-op row sort
+     (the final union-sum of the batch DBs) were launched; then a
+     resume from a manifest that says batch 0 is done, with that
+     batch's DB kept: an equal DB, and batch 0 not counted again
+ 10. count-suffix and the compacted chunk path on a subsample of the
+     reads (the host sort path at the production chunk), against a numpy
+     brute force; the host path's peak device bytes a base beside the
+     plan's model
+ 11. `-C`: the plan on stderr, the card's own memory in it, nothing
+     counted
+ 12. accumulator memory: the device-accumulator count's peak device
+     bytes at two input sizes, beside the admission budget's bytes a
+     unique
+ 13. download A/B: the accumulator's three downloads (pageable int64,
+     pinned int32, gap-packed) in turns on phase 6's input, each
+     decoding to the same arrays, ms and GB/s an arm
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs CUDA; imports no JAX.
 """
@@ -439,7 +458,7 @@ def phase_main_path(torch, cli, counter, accum, extract_cuda, MerylDB,
           f"max_memory_allocated {peak} B; geometry L0={plan['L0']} "
           f"B={plan['B']} M={plan['M']} c={plan['c']} La0={plan['La0']}")
     print("count path stats: " + json.dumps(stats, sort_keys=True))
-    return launches, genome, db
+    return launches, genome, db, fq, reads, peak
 
 
 COMP = {"A": "T", "C": "G", "G": "C", "T": "A"}
@@ -683,6 +702,283 @@ def phase_setop_rows(torch, optree, rowsort, db_a, db_b):
                 by=by, shape=f"{R}x{L} k=21")
 
 
+class _StderrHook:
+    """Stands in for sys.stderr during a `-P` count: every progress line
+    (one a chunk, written by the counting thread) calls `on_chunk`."""
+
+    def __init__(self, on_chunk):
+        self.on_chunk = on_chunk
+        self.text = []
+
+    def write(self, s):
+        self.text.append(s)
+        if s.startswith("\rcounting"):
+            self.on_chunk()
+        return len(s)
+
+    def flush(self):
+        pass
+
+
+def _same_db(MerylDB, a, b):
+    return all(np.array_equal(x, y) for x, y in
+               zip(MerylDB.open(a).load_all(), MerylDB.open(b).load_all()))
+
+
+def phase_batched(torch, cli, counter, extract_cuda, rowsort, MerylDB, fq,
+                  db_a, bases, workdir):
+    """`memory=` / `threads=` through the CLI: out-of-core batches, their
+    union-sum, and a resume."""
+    exp = counter.expected_kmers([fq])
+    # the file-size guess is ~2x a FASTQ's bases, so a plan of 6 batches
+    # makes 3 real ones
+    memory = round(exp * 20 / 5.5 / 1e9, 4)
+    plan = counter.configure_counting([fq], 21, memory)
+    if plan["batches"] < 3 or plan["chunk_len"] != CHUNK:
+        raise AssertionError(f"memory={memory} does not plan >= 3 batches "
+                             f"of 2^22 chunks: {plan}")
+    threads = min(8, os.cpu_count() or 1)
+    saved_threads = os.environ.get("MERYL_TPU_THREADS")
+    out = os.path.join(workdir, "batched.meryl")
+    keep0 = os.path.join(workdir, "kept.batch0")
+    seen = {"manifest": None, "batch_dbs": set()}
+
+    def on_chunk():
+        mpath = out + ".manifest.json"
+        if os.path.exists(mpath):
+            with open(mpath) as f:
+                manifest = json.load(f)
+            seen["batch_dbs"].update(
+                i for i in manifest["done"]
+                if os.path.isdir(f"{out}.batch{i}"))
+            if seen["manifest"] is None and 0 in manifest["done"]:
+                # batch 0 is complete and untouched until the final merge
+                shutil.copytree(out + ".batch0", keep0)
+                seen["manifest"] = manifest
+
+    words = ["k=21", f"memory={memory}", f"threads={threads}", "-P", "count",
+             fq, "output"]
+    try:
+        hook = _StderrHook(on_chunk)
+        extract_cuda.LAUNCHES = rowsort.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(hook):
+            rc = cli.main(words + [out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ext_launches, sort_launches = extract_cuda.LAUNCHES, rowsort.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            raise AssertionError(f"batched count exited {rc}: "
+                                 f"{''.join(hook.text)[-2000:]}")
+        if os.environ.get("MERYL_TPU_THREADS") != str(threads):
+            raise AssertionError("threads= did not set MERYL_TPU_THREADS")
+        st = dict(counter.LAST_BATCH_STATS)
+        n = st["batches"]
+        if n < 3 or len(st["counted"]) != n or st["skipped"]:
+            raise AssertionError(f"not >= 3 counted batches: {st}")
+        if seen["manifest"] is None or len(seen["batch_dbs"]) < n - 1:
+            raise AssertionError(f"the manifest and the batch DBs were not "
+                                 f"seen while counting: {seen}")
+        left = [p for p in os.listdir(workdir)
+                if p.startswith("batched.meryl.")]
+        if left:
+            raise AssertionError(f"left behind: {left}")
+        if not _same_db(MerylDB, out, db_a):
+            raise AssertionError("the batched DB differs from the unbatched")
+        if ext_launches < st["chunks"] or sort_launches < 1:
+            raise AssertionError(
+                f"kernels not launched on the batched path: extract "
+                f"{ext_launches} (chunks {st['chunks']}), row sort "
+                f"{sort_launches}")
+        print(f"batched count: memory={memory} threads={threads}: plan "
+              f"{plan['batches']} batches of {plan['batch_bases']} expected "
+              f"k-mers, {n} real batches over {st['chunks']} chunks; "
+              f"{bases / wall / 1e6:.3f} Mbases/s ({wall:.3f} s wall incl. "
+              f"the final union-sum {st['merge_wall_s']:.3f} s); DB equal to "
+              f"the unbatched count's; manifest and {len(seen['batch_dbs'])} "
+              f"batch DBs seen while counting, gone after; extract LAUNCHES "
+              f"{ext_launches}, rowsort LAUNCHES {sort_launches}; "
+              f"max_memory_allocated {peak} B")
+        print("batched count batches: " + json.dumps(st["counted"]))
+
+        # resume: batch 0 done by "an earlier run", its DB kept
+        out2 = os.path.join(workdir, "resumed.meryl")
+        shutil.copytree(keep0, out2 + ".batch0")
+        with open(out2 + ".manifest.json", "w") as f:
+            json.dump(dict(seen["manifest"], done=[0]), f)
+        extract_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(_StderrHook(lambda: None)):
+            rc = cli.main(words + [out2])
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        st2 = dict(counter.LAST_BATCH_STATS)
+        cpb = -(-plan["batch_bases"] // CHUNK)  # chunks a batch
+        if rc != 0 or st2["skipped"] != [0] or \
+                [b["batch"] for b in st2["counted"]] != list(range(1, n)) or \
+                not st["chunks"] - cpb <= extract_cuda.LAUNCHES \
+                < st["chunks"]:
+            raise AssertionError(
+                f"resume recounted batch 0 or lost one: rc {rc}, {st2}, "
+                f"extract LAUNCHES {extract_cuda.LAUNCHES}")
+        if not _same_db(MerylDB, out2, db_a):
+            raise AssertionError("the resumed DB differs from the unbatched")
+        print(f"batched resume: batch 0 skipped ({cpb} chunks), batches "
+              f"1..{n - 1} counted in {wall2:.3f} s, extract LAUNCHES "
+              f"{extract_cuda.LAUNCHES}, DB equal")
+    finally:
+        if saved_threads is None:
+            os.environ.pop("MERYL_TPU_THREADS", None)
+        else:
+            os.environ["MERYL_TPU_THREADS"] = saved_threads
+    return ext_launches, sort_launches
+
+
+FASTQ_RECORD = 3 + READ_LEN + 3 + READ_LEN + 1   # bytes, _make_fastq
+
+
+def _head_fastq(fq, n_reads, path):
+    """The first n_reads records of a _make_fastq file."""
+    with open(fq, "rb") as f, open(path, "wb") as g:
+        g.write(f.read(n_reads * FASTQ_RECORD))
+    return path
+
+
+def _with_env(env, fn):
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_suffix(torch, cli, counter, MerylDB, fq, reads, workdir):
+    """count-suffix= and MERYL_TPU_COMPACT=device: the host sort path at
+    the production chunk, on the first 60,000 reads."""
+    n_sub = 60_000
+    sub = _head_fastq(fq, n_sub, os.path.join(workdir, "sub.fq"))
+    suffix = "ACGT"
+    sbits = sum(CODE[ch] << (2 * (len(suffix) - 1 - i))
+                for i, ch in enumerate(suffix))
+    all_k, all_c = _brute_canonical(reads[:n_sub], 21)
+    ends = (all_k & np.uint64(4 ** len(suffix) - 1)) == np.uint64(sbits)
+    want_k, want_c = all_k[ends], all_c[ends]
+    if not 1000 < len(want_k) < len(all_k) // 100:
+        raise AssertionError(f"odd suffix share: {len(want_k)} of "
+                             f"{len(all_k)}")
+
+    def count(name, words, env, wk, wc):
+        db = os.path.join(workdir, name + ".meryl")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = _with_env(env, lambda: cli.main(
+            ["k=21", *words, "count", sub, "output", db]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hi, lo, c = MerylDB.open(db).load_all()
+        if rc != 0 or not ((hi == 0).all() and np.array_equal(lo, wk)
+                           and np.array_equal(c.astype(np.int64),
+                                              wc.astype(np.int64))):
+            raise AssertionError(f"{name}: rc {rc}, {len(lo)} k-mers, "
+                                 f"brute force {len(wk)}")
+        return wall, torch.cuda.max_memory_allocated()
+
+    sfx = [f"count-suffix={suffix}"]
+    w1, _ = count("sfx", sfx, {}, want_k, want_c)
+    w2, _ = count("sfx_compact", sfx, {"MERYL_TPU_COMPACT": "device"},
+                  want_k, want_c)
+    host = {"MERYL_TPU_DEVICE_ACC": "0"}
+    w3, peak = count("host", [], host, all_k, all_c)
+    w4, peak_c = count("host_compact", [],
+                       dict(host, MERYL_TPU_COMPACT="device"), all_k, all_c)
+    model = counter.device_bytes_per_base(21)
+    print(f"count-suffix: k=21 count-suffix={suffix} on {n_sub} reads "
+          f"({n_sub * READ_LEN} bases): {len(want_k)} of {len(all_k)} "
+          f"k-mers, equal to brute force in {w1:.3f} s; with "
+          f"MERYL_TPU_COMPACT=device equal in {w2:.3f} s")
+    print(f"host sort path: the same reads with MERYL_TPU_DEVICE_ACC=0 equal "
+          f"to brute force in {w3:.3f} s, peak {peak} B = "
+          f"{peak / CHUNK:.1f} B a base of a 2^22 chunk (the plan's model: "
+          f"{model}); with MERYL_TPU_COMPACT=device equal in {w4:.3f} s, "
+          f"peak {peak_c} B = {peak_c / CHUNK:.1f} B a base")
+    if peak > 2 * model * CHUNK:
+        raise AssertionError("the host sort path holds more than twice the "
+                             "plan's device bytes a base")
+    return sub
+
+
+def phase_configure(torch, cli, counter, fq, workdir):
+    """-C prints the tree and the plan, counts nothing."""
+    out = os.path.join(workdir, "never.meryl")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["-C", "k=21", "memory=1.5", "count", fq, "output",
+                       out])
+    plan = dict(ln.strip().split(": ", 1) for ln in
+                err.getvalue().splitlines() if ": " in ln)
+    total = torch.cuda.get_device_properties(0).total_memory
+    want = counter.configure_counting([fq], 21, 1.5)
+    if rc != 0 or os.path.exists(out) or \
+            float(plan.get("hbm_gb", 0)) != total / 1e9 or \
+            {k: str(v) for k, v in want.items()} != \
+            {k: plan.get(k) for k in want}:
+        raise AssertionError(f"-C: rc {rc}, plan {plan}, wanted {want}")
+    print(f"-C: exit 0, no DB; plan {json.dumps(want)} (hbm_gb is the card's "
+          f"total_memory {total} B)")
+
+
+def phase_acc_memory(torch, cli, counter, accum, fq, peak_full, workdir):
+    """The device-accumulator count's peak device memory at two input
+    sizes, and what the admission budget takes it to be."""
+    n_half = COVERAGE * GENOME // READ_LEN // 2
+    half = _head_fastq(fq, n_half, os.path.join(workdir, "half.fq"))
+    torch.cuda.reset_peak_memory_stats()
+    rc = cli.main(["k=21", "count", half, "output",
+                   os.path.join(workdir, "half.meryl")])
+    torch.cuda.synchronize()
+    peak_half = torch.cuda.max_memory_allocated()
+    if rc != 0 or counter.LAST_WIRE_STATS["salvaged"]:
+        raise AssertionError("half-size count failed or left the device path")
+    rows = []
+    for path, peak in ((half, peak_half), (fq, peak_full)):
+        exp = counter.expected_kmers([path])
+        plan = accum.plan_route(CHUNK, 21, exp)
+        rows.append((exp, 0.35 * exp, plan["B"] * plan["La0"], peak))
+    (e0, u0, s0, p0), (e1, u1, s1, p1) = rows
+    budget = counter.acc_bytes_per_unique(21)
+    print(f"accumulator memory: peak {p0} B at {e0} expected k-mers "
+          f"({s0} accumulator slots), {p1} B at {e1} ({s1} slots): "
+          f"{(p1 - p0) / (u1 - u0):.1f} B a budgeted unique (0.35 x "
+          f"expected) on the slope, {p1 / u1:.1f} B in all at the full "
+          f"size; {(p1 - p0) / (s1 - s0):.1f} B an accumulator slot; the "
+          f"admission budget counts {budget} B a budgeted unique against "
+          f"{counter.acc_cap_bytes('cuda')} B")
+    return peak_half
+
+
+def phase_download_ab(ab_download, fq):
+    print("download A/B (finalize of a device-accumulator count of the "
+          "count path's input, arms in turns; turn 0 of the pinned arms "
+          "allocates the pinned buffer):")
+    recs = ab_download.run([fq], 21, turns=3)
+    for arm in ab_download.ARMS:
+        ms = sorted(r["download_ms"] for r in recs if r["arm"] == arm)
+        fin = sorted(r["t_finalize_s"] for r in recs if r["arm"] == arm)
+        r0 = next(r for r in recs if r["arm"] == arm)
+        print(f"download {arm}: {r0['d2h_bytes']} B, download "
+              f"{ms[0]:.1f}-{ms[-1]:.1f} ms "
+              f"({r0['d2h_bytes'] / ms[-1] / 1e6:.2f}-"
+              f"{r0['d2h_bytes'] / ms[0] / 1e6:.2f} GB/s), finalize "
+              f"{fin[0]:.3f}-{fin[-1]:.3f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -695,7 +991,7 @@ def main():
     from meryl_tpu_torch.ops import accum, extract_cuda, rowsort
     from meryl_tpu_torch.ops import extract as ext
     from meryl_tpu_torch.ops import multiword as mw
-    from meryl_tpu_torch.tools import ab_extract, ab_passfloor
+    from meryl_tpu_torch.tools import ab_download, ab_extract, ab_passfloor
 
     phase_env(torch)
     phase_build({"extract.cu": extract_cuda, "rowsort.cu": rowsort}, native)
@@ -706,12 +1002,19 @@ def main():
     i32_launches, floor_launches = phase_probe(torch, mw, rowsort)
     workdir = tempfile.mkdtemp(prefix="meryl_torch_smoke_")
     try:
-        launches, genome, db_a = phase_main_path(
+        launches, genome, db_a, fq, reads, peak = phase_main_path(
             torch, cli, counter, accum, extract_cuda, MerylDB, workdir)
         phase_hatches(counter, workdir)
         sort_launches, db_b = phase_setops(torch, cli, optree, rowsort,
                                            MerylDB, genome, db_a, workdir)
         rows = phase_setop_rows(torch, optree, rowsort, db_a, db_b)
+        batched_ext, batched_sort = phase_batched(
+            torch, cli, counter, extract_cuda, rowsort, MerylDB, fq, db_a,
+            int(reads.size), workdir)
+        phase_suffix(torch, cli, counter, MerylDB, fq, reads, workdir)
+        phase_configure(torch, cli, counter, fq, workdir)
+        phase_acc_memory(torch, cli, counter, accum, fq, peak, workdir)
+        phase_download_ab(ab_download, fq)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     probe = "scripts/probe_r4_pallas_sort.py"
@@ -723,6 +1026,7 @@ def main():
          "launches": launches, "max_abs_err": max_err, "ms": x21["alone"],
          "plain_ms": x21["plain"], "bound_ms": x21["bound"],
          "bound_by": x21["by"], "library_ms": None, "call_ms": x21["call"],
+         "launches_batched": batched_ext,
          "path": "count", "shape": f"{CHUNK} codes k=21 canonical"},
         {"name": "rowsort_bitonic_keys", "route": "cuda",
          "source": "meryl_tpu_torch/csrc/rowsort.cu",
@@ -730,7 +1034,8 @@ def main():
          "launches": sort_launches, "max_abs_err": max(err_b, rows["err"]),
          "ms": rows["ms"], "plain_ms": rows["plain"],
          "bound_ms": rows["bound"], "bound_by": rows["by"],
-         "library_ms": rows["library"], "path": "set operations",
+         "library_ms": rows["library"], "launches_batched": batched_sort,
+         "path": "set operations",
          "shape": rows["shape"]},
         {"name": "rowsort_bitonic_i32", "route": "cuda",
          "source": "meryl_tpu_torch/csrc/rowsort.cu",

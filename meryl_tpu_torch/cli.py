@@ -8,9 +8,10 @@
 
   * each word may start with '[' and end with any number of ']' (pop
     the op stack after the word)
-  * flags -V -Q -P; options k= compress d=/distinct= f=/word-frequency=
-    t=/threshold= device=cuda|cpu (default cuda, which fails when CUDA
-    is absent; there is no fallback)
+  * flags -V -Q -P -C; options k= n= memory= threads= compress
+    count-suffix= d=/distinct= f=/word-frequency= t=/threshold=
+    segment= device=cuda|cpu (default cuda, which fails when CUDA is
+    absent; there is no fallback)
   * bare numbers bind to the current op's threshold or math constant
   * operations: count[-forward|-reverse], less-than, greater-than,
     at-least, at-most, equal-to, not-equal-to, increase, decrease,
@@ -22,8 +23,11 @@
     histogram text files (ploidy only)
   * special commands: dumpIndex DB, dumpFile BUCKETFILE
 
-The words of meryl_tpu's CLI that the port does not run yet fail with
-the ROADMAP item that will port them.
+Every word of meryl_tpu's CLI runs here.  -C prints the action tree
+and the counting plan and counts nothing; its plan has no multi-device
+scaling table.  The multi-device requests of meryl_tpu (environment
+MERYL_TPU_SHARDED=1, MERYL_TPU_COORD) fail in counter.py with the
+ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ OP_NAMES = set(COUNT_OPS) | set(NEEDS_THRESHOLD) | set(NEEDS_CONSTANT) | {
     "histogram", "statistics", "ploidy", "noise", "compare",
 }
 
-USAGE = """usage: meryl-torch [-V] [-Q] [-P] [options] action[s]
+USAGE = """usage: meryl-torch [-V] [-Q] [-P] [-C] [options] action[s]
 The PyTorch / CUDA port of meryl_tpu: a k-mer counter and k-mer-set
 calculator.  Actions form a tree:
 
@@ -66,34 +70,26 @@ operations:
   subtract difference symmetric-difference
   histogram statistics ploidy compare
 
-options: k=K compress d=/distinct=F f=/word-frequency=F t=/threshold=N
+options: k=K n=N memory=GB threads=T compress count-suffix=SUF
+         d=/distinct=F f=/word-frequency=F t=/threshold=N segment=a/b
          device=cuda|cpu
 outputs: output DB.meryl | print [FILE] | printACGT [FILE]
 """
-
-# words of meryl_tpu's CLI and the ROADMAP item that ports them
-_NOT_PORTED = {
-    "count-suffix": "A13", "memory": "A11", "threads": "A11",
-    "n": "A11", "-C": "A11", "segment": "A10",
-}
 
 
 class ParseError(Exception):
     pass
 
 
-def _not_ported(word: str) -> ParseError:
-    item = _NOT_PORTED[word.split("=", 1)[0]]
-    return ParseError(f"'{word}' is not yet ported in meryl_tpu_torch "
-                      f"(ROADMAP.md item {item})")
-
-
 class CommandBuilder:
     def __init__(self):
         self.k = 0
+        self.memory_gb: float | None = None
+        self.threads: int | None = None
         self.compress = False
         self.verbosity = 1
         self.progress = False
+        self.configure_only = False
         self.device = "cuda"
         self.stack: list[OpNode] = []
         self.roots: list[OpNode] = []
@@ -155,8 +151,6 @@ class CommandBuilder:
             f"recognized input file.")
 
     def _process_option(self, w: str) -> bool:
-        if w == "-C" or w.split("=", 1)[0] in _NOT_PORTED and "=" in w:
-            raise _not_ported(w)
         if w.startswith("-V"):
             self.verbosity += len(w) - 1
             return True
@@ -165,6 +159,9 @@ class CommandBuilder:
             return True
         if w == "-P":
             self.progress = True
+            return True
+        if w == "-C":
+            self.configure_only = True
             return True
         if w == "compress":
             self.compress = True
@@ -185,6 +182,12 @@ class CommandBuilder:
                 raise ParseError(f"kmer size mismatch: {self.k} != {v}")
             self.k = v
             return True
+        if key == "n":
+            t.expected_kmers = int(val)
+            return True
+        if key == "count-suffix":
+            t.count_suffix = val
+            return True
         if key in ("d", "distinct"):
             t.frac_distinct = float(val)
             return True
@@ -193,6 +196,18 @@ class CommandBuilder:
             return True
         if key in ("t", "threshold"):
             t.threshold = int(val)
+            return True
+        if key == "memory":
+            self.memory_gb = float(val)
+            return True
+        if key == "threads":
+            self.threads = int(val)
+            # host-side parallelism: the native merge reads this
+            os.environ["MERYL_TPU_THREADS"] = str(self.threads)
+            return True
+        if key == "segment" and "/" in val:
+            a, b = val.split("/", 1)
+            t.segment = (int(a), int(b))
             return True
         return False
 
@@ -268,8 +283,6 @@ class CommandBuilder:
 
     def finalize(self):
         self._terminate()
-        if self._pending_output:
-            raise ParseError("'output' needs a DB path")
         # bare inputs with no op = print everything
         for op in self.all_ops:
             if op.op == "nothing" and op.inputs:
@@ -340,6 +353,29 @@ def _report(root: OpNode, b: CommandBuilder) -> None:
         reports.report_ploidy(hist)
 
 
+def _configure(b: CommandBuilder, device) -> None:
+    """-C: each root's tree and the plan of each counting node, to
+    stderr."""
+    from .counter import configure_counting
+
+    def describe_counting(node):
+        if node.is_counting():
+            paths = [s.path for s in node.inputs
+                     if isinstance(s, SeqInput)]
+            if paths and b.k:
+                plan = configure_counting(paths, b.k, b.memory_gb,
+                                          device=device)
+                for kk, vv in plan.items():
+                    sys.stderr.write(f"  {kk}: {vv}\n")
+        for inp in node.inputs:
+            if isinstance(inp, OpNode):
+                describe_counting(inp)
+
+    for root in b.roots:
+        root.describe()
+        describe_counting(root)
+
+
 def run(b: CommandBuilder, device) -> int:
     from .counter import count_to_db
 
@@ -347,6 +383,10 @@ def run(b: CommandBuilder, device) -> int:
         if root.op in ("histogram", "statistics", "ploidy"):
             _report(root, b)
             return 0
+
+    if b.configure_only:
+        _configure(b, device)
+        return 0
 
     # counting phase: materialize counting nodes into DBs, then convert
     # them to pass-through DB inputs
@@ -375,7 +415,9 @@ def run(b: CommandBuilder, device) -> int:
                     sys.stderr.write(f"\rcounting: {nbases / 1e6:.1f} Mbp")
                     sys.stderr.flush()
             count_to_db(paths, node.output_path, b.k, mode=mode,
-                        hpc=b.compress, progress=progress, device=device)
+                        hpc=b.compress, progress=progress, device=device,
+                        count_suffix=node.count_suffix,
+                        segment=node.segment, memory_gb=b.memory_gb)
             if b.progress:
                 sys.stderr.write("\n")
 

@@ -8,6 +8,11 @@ set once.  The exactness hatches (cell overflow, accumulator capacity)
 finish on the host sort path: per-chunk sort + run starts on the
 device, run lengths and a k-way merge on the host.
 
+memory= is a real bound: when the plan (configure_counting) says the
+merged unique set may pass it, count_to_db counts in batches, each
+written as a partial DB with a resume manifest, and union-sums them
+(count_to_db_batched).
+
 The host modules (kmer, db, io.sequence, native) are the port's own
 copies of meryl_tpu's; nothing here imports JAX or meryl_tpu.
 """
@@ -47,6 +52,43 @@ def _sort_rowlen(chunk_len: int) -> int | None:
     return r
 
 
+def _compact_device() -> bool:
+    """MERYL_TPU_COMPACT=device (read at call time): the host sort path
+    compacts each chunk's unique entries on the device and downloads
+    only that prefix, instead of the whole sorted chunk with its run
+    starts."""
+    return _os.environ.get("MERYL_TPU_COMPACT", "host") == "device"
+
+
+def _parse_suffix(count_suffix, k: int):
+    """count-suffix string -> (bits, length), or None."""
+    if not count_suffix:
+        return None
+    if len(count_suffix) > k:
+        raise ValueError("count-suffix longer than k")
+    return km.string_to_kmer(count_suffix), len(count_suffix)
+
+
+def _suffix_filter(key, valid, suffix, k: int):
+    """Keep only k-mers whose last `length` bases encode to `bits`
+    (suffix = (bits, length)): the low 2 * length bits of the k-mer as
+    it is stored (canonical, forward or reverse), 64 bits a word."""
+    if suffix is None:
+        return valid
+    sbits, slen = suffix
+    need = 2 * slen
+    for w, word in enumerate(reversed(mw.split(key, k))):  # low word first
+        bits_here = min(64, need - 64 * w)
+        if bits_here <= 0:
+            break
+        mask = (1 << bits_here) - 1
+        want = (sbits >> (64 * w)) & mask
+        # as signed int64 constants
+        mask, want = (v - (1 << 64) if v >> 63 else v for v in (mask, want))
+        valid = valid & (((word ^ mw.FLIP) & mask) == want)
+    return valid
+
+
 def _wire(codes: np.ndarray, device):
     """Host codes -> packed wire tensors on `device` (packed words as
     int32 bit patterns)."""
@@ -59,23 +101,32 @@ def _wire_tensors(packed2, exc, device):
             torch.from_numpy(exc).to(device))
 
 
-def _count_chunk(chunk, k: int, mode: str, device):
+def _count_chunk(chunk, k: int, mode: str, device, suffix=None):
     """Dispatch one chunk on the host sort path: host codes, or a wire
-    triple (packed2, exc, n_real) already on the device.  Returns an
-    opaque device result for _finish_chunk."""
+    triple (packed2, exc, n_real) already on the device.  suffix: an
+    optional (bits, length) pair (_parse_suffix).  Returns the
+    arguments of _finish_chunk, the first an opaque device result."""
     if isinstance(chunk, np.ndarray):
         chunk = _wire(chunk, device)
     packed2, exc, n_real = chunk
     L = packed2.shape[0] * 16
-    rowlen = _sort_rowlen(L)
     key, valid = extract_cuda.extract_kmers_packed(packed2, exc, n_real,
                                                    k, mode)
-    return cnt.sort_starts(key, valid, k, rowlen), rowlen, k
+    valid = _suffix_filter(key, valid, suffix, k)
+    if _compact_device():
+        return cnt.sort_count_compacted(key, valid, k), None, k, True
+    rowlen = _sort_rowlen(L)
+    return cnt.sort_starts(key, valid, k, rowlen), rowlen, k, False
 
 
-def _finish_chunk(result, rowlen, k):
+def _finish_chunk(result, rowlen, k, compacted=False):
     """Device result -> LIST of host (hi, lo, counts-u64) sorted unique
     triples, one per sort row (rows are sorted independently)."""
+    if compacted:
+        ukey, counts, n_unique = result
+        n = int(n_unique)
+        hi, lo = mw.to_hilo(ukey[:n].cpu().numpy(), k)
+        return [(hi, lo, counts[:n].cpu().numpy().astype(np.uint64))]
     skey, start, n_invalid = result
     n_inv = n_invalid.cpu().numpy() if rowlen else int(n_invalid)
     (keys,), c, idx = cnt.host_rle_finish(
@@ -141,6 +192,64 @@ def _unique_run(hi, lo):
     return hi[st], lo[st], cnt_
 
 
+# a download at least this large goes through a pinned host buffer
+PIN_MIN_BYTES = 1 << 20
+
+
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    """Device tensor -> numpy.  A large CUDA tensor is copied into a
+    pinned (page-locked) host buffer with one asynchronous copy and one
+    synchronize; a small one, or a CPU tensor, takes the plain path."""
+    if x.is_cuda and x.numel() * x.element_size() >= PIN_MIN_BYTES:
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        torch.cuda.current_stream(x.device).synchronize()
+        return host.numpy()
+    return x.cpu().numpy()
+
+
+# whether the accumulator download is gap-packed when MERYL_TPU_PACK_D2H
+# is unset.  Dense: on an H100 the pinned dense download is a few ms of
+# copy and the packed one's numpy decode costs more than its smaller
+# copy saves (PERF.md, the download A/B; tools/ab_download.py).
+PACK_D2H_DEFAULT = False
+
+
+def prepack(codes: np.ndarray, chunk_len: int):
+    """Pad one chunk to chunk_len and 2-bit-pack it:
+    -> (codes, packed2, exc, n_real, n_orig), what
+    DeviceAccCounter.add_codes takes."""
+    n_orig = len(codes)
+    if n_orig < chunk_len:
+        codes = np.concatenate(
+            [codes, np.full(chunk_len - n_orig, SEP, np.uint8)])
+    packed2, exc, n_real = km.pack_codes_2bit(codes, pad_to=chunk_len)
+    return (codes, packed2, exc, n_real, n_orig)
+
+
+def acc_bytes_per_unique(k: int) -> int:
+    """Device bytes the accumulator path budgets for each accumulator
+    slot (each expected unique): the int64 tensors that merge_cells
+    holds at its peak, 4 shaped like the keys (W words) and 10 like the
+    positions, and 3 more index tensors for a two-word sort.  112 at
+    k <= 32, where an H100's peak grows by 114-115 B a slot
+    (PERF.md)."""
+    w = mw.num_words(k)
+    return 8 * (4 * w + 10 + 3 * (w - 1))
+
+
+def acc_cap_bytes(device) -> int:
+    """The accumulator's device-memory budget: MERYL_TPU_ACC_CAP_GB when
+    set, else half the card's memory, or 4 GB for device=cpu."""
+    env = _os.environ.get("MERYL_TPU_ACC_CAP_GB")
+    if env:
+        return int(float(env) * 1e9)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory // 2
+    return 4 * 10 ** 9
+
+
 class AccCapacity(Exception):
     """The accumulator would outgrow its device-memory budget: the
     driver salvages the device state exactly and finishes on the host
@@ -163,6 +272,12 @@ class DeviceAccCounter:
         salvage() rescues the device state exactly
       * the all-ones k-mer (real when 2k % 32 == 0) is counted by a
         device scalar and appended at finalize
+
+    The final download is dense (keys as they are, counts narrowed to
+    32 bits, one buffer through pinned host memory) or gap-packed
+    (ops/accum.pack_for_download, 2k <= 64 only: one 32-bit word a
+    unique); MERYL_TPU_PACK_D2H=1/0 chooses, PACK_D2H_DEFAULT
+    otherwise.  Both decode to the same arrays.
     """
 
     def __init__(self, k: int, mode: str, chunk_len: int,
@@ -190,8 +305,8 @@ class DeviceAccCounter:
         self._nallones = []        # device scalars, fetched at the end
         self._fallback_runs = []   # host-counted overflow chunks
         self._ovf_keys = []        # captured cell-overflow windows
-        self._cap_bytes = int(float(
-            _os.environ.get("MERYL_TPU_ACC_CAP_GB", 4.0)) * 1e9)
+        self._cap_bytes = acc_cap_bytes(self.device)
+        self._max_run = None       # largest row of the last merge
         self.n_chunks = 0
         self.n_merges = 0
         self.n_regrows = 0
@@ -205,7 +320,7 @@ class DeviceAccCounter:
         self.sync = {"n_h2d": 0, "n_dispatch": 0, "n_fetch": 0,
                      "t_h2d_s": 0.0, "t_dispatch_s": 0.0,
                      "t_fetch_s": 0.0, "host_pack_s": 0.0,
-                     "host_finalize_s": 0.0}
+                     "host_finalize_s": 0.0, "t_download_s": 0.0}
 
     def _put(self, x: np.ndarray):
         t0 = _time.perf_counter()
@@ -223,7 +338,7 @@ class DeviceAccCounter:
 
     def _fetch(self, x: torch.Tensor) -> np.ndarray:
         t0 = _time.perf_counter()
-        r = x.cpu().numpy()
+        r = _to_host(x)
         self.sync["n_fetch"] += 1
         self.sync["t_fetch_s"] += _time.perf_counter() - t0
         return r
@@ -253,13 +368,7 @@ class DeviceAccCounter:
     def prepack(self, codes: np.ndarray):
         """Pad + 2-bit-pack one chunk for add_codes; runs on the
         prefetch reader thread, so the pack overlaps device work."""
-        n_orig = len(codes)
-        if n_orig < self.chunk_len:
-            codes = np.concatenate(
-                [codes, np.full(self.chunk_len - n_orig, SEP, np.uint8)])
-        packed2, exc, n_real = km.pack_codes_2bit(
-            codes, pad_to=self.chunk_len)
-        return (codes, packed2, exc, n_real, n_orig)
+        return prepack(codes, self.chunk_len)
 
     def add_codes(self, codes):
         """codes: (chunk_len,) uint8 host codes, or a prepack() tuple."""
@@ -372,16 +481,14 @@ class DeviceAccCounter:
         self._acc = None  # drop the truncated merge result
         held = (self._staged_bytes(staged) + old_acc[0].numel() * 8
                 + old_acc[1].numel() * 8)
-        words = mw.num_words(self.k)
         la = la_then
         while True:
             new_la = la
             while new_la < hi:
                 new_la *= 2
-            # the merge's working set (keys + counts, int64, x3) plus
-            # what stays alive meanwhile: the old accumulator and the
-            # staged cells
-            need = new_la * self.B * (words + 1) * 8 * 3 + held
+            # the merge's working set plus what stays alive meanwhile:
+            # the old accumulator and the staged cells
+            need = new_la * self.B * acc_bytes_per_unique(self.k) + held
             if need > self._cap_bytes:
                 self._acc = old_acc
                 self.La = la_then
@@ -449,6 +556,148 @@ class DeviceAccCounter:
             runs.append(self._allones_run(n_allones))
         return runs
 
+    def download_lmax(self) -> int:
+        """Columns of the accumulator the download takes: the used row
+        prefix (the accumulator is sized from an over-estimate),
+        quantized like the row capacity."""
+        return min(self.La, accum._eighth_round(
+            max(256, self._max_run or self.La)))
+
+    def download(self):
+        """The accumulator as one sorted unique (hi, lo, counts-u64)
+        run: gap-packed when 2k <= 64 and MERYL_TPU_PACK_D2H (default
+        PACK_D2H_DEFAULT) allows, else (or when the packed path bows
+        out) dense."""
+        lmax = self.download_lmax()
+        pack = _os.environ.get("MERYL_TPU_PACK_D2H",
+                               "1" if PACK_D2H_DEFAULT else "0") != "0"
+        run = None
+        if pack and 2 * self.k <= 64:
+            run = self._download_packed(lmax)
+        if run is None:  # k > 32, knob off, or exceptions overflowed
+            run = self._download_dense(lmax)
+        return run
+
+    def _download_dense(self, lmax: int):
+        """Dense download: the used entries (count > 0) are compacted on
+        the device in row order, which is key order; their key words
+        and their counts, narrowed to 32-bit patterns (counts saturate
+        at the 32-bit VALUE_MAX in merge_cells), are laid out in ONE
+        int32 device buffer that crosses in one copy.  The host only
+        reinterprets it."""
+        key, counts = self._acc[0][:, :lmax], self._acc[1][:, :lmax]
+        keep = counts > 0
+        ukey = key[keep]
+        n = ukey.shape[0]
+        nk = n * 2 * mw.num_words(self.k)      # int32 slots of the keys
+        buf = torch.empty(nk + n, dtype=torch.int32, device=self.device)
+        buf[:nk].view(torch.int64).view(ukey.shape).copy_(ukey)
+        buf[nk:].copy_(counts[keep])
+        host = self._fetch(buf)
+        self.wire_d2h_bytes += host.nbytes
+        t0 = _time.perf_counter()
+        hi, lo = mw.to_hilo(host[:nk].view(np.int64).reshape(
+            (n,) + self._tail()), self.k)
+        run = (hi, lo, host[nk:].view(np.uint32).astype(np.uint64))
+        self.sync["host_finalize_s"] += _time.perf_counter() - t0
+        return run
+
+    def _download_packed(self, lmax: int):
+        """Gap-packed download (ops/accum.pack_for_download_fused): one
+        32-bit word a unique in place of a key and a count, in ONE
+        blocking fetch.  Column 0 of each row crosses dense (the cumsum
+        base); exceptions (a gap or count that does not fit) are
+        re-applied by position; rows whose exceptions overflow the
+        capture arrays are downloaded dense.  Returns None when too
+        many rows overflow or an exception lies past the downloaded
+        prefix: the caller then downloads dense, so this path is exact
+        or absent, never approximate."""
+        key, counts = self._acc
+        B, EC = self.B, accum.EXC_ROW_CAP
+        P = 1 if self.k <= 16 else 2
+        blob = self._fetch(self._dispatch(
+            accum.pack_for_download_fused, key, counts, self.k,
+            self._bases_seen, lmax)).view(np.uint32)
+        offs = np.cumsum([B * lmax] + [B] * (3 + P)
+                         + [B * EC] * (2 + P))[:-1]
+        packed_f, gbits_f, nexc_f, headc_f, *rest = np.split(blob, offs)
+        headp_f = rest[:P]
+        exccol_f, exccnt_f = rest[P], rest[P + 1]
+        excp_f = rest[P + 2:]
+        packed = packed_f.reshape(B, lmax)
+        n_exc_row = nexc_f.astype(np.int32)
+        # rows whose exceptions overflow the capture arrays download
+        # dense: the equal-mass routing map gives rows equal counts, so
+        # rows over sparse key ranges have in-row gaps far past the gap
+        # field; a few wide rows, not a reason to give up the packing
+        # of the rest
+        dense_rows = np.flatnonzero(n_exc_row > EC)
+        if len(dense_rows) > max(4, B // 4):
+            return None
+        head_p = [p.astype(np.uint64) for p in headp_f]
+        head_c = headc_f
+        exc_col = exccol_f.reshape(B, EC)
+        exc_p = [p.reshape(B, EC).astype(np.uint64) for p in excp_f]
+        exc_cnt = exccnt_f.reshape(B, EC)
+        # wire accounting accumulates locally and commits only on the
+        # successful return: the exception loop below can still bow out
+        # to the dense download, which does its own accounting
+        d2h_bytes = blob.nbytes
+
+        cbits_row = (32 - gbits_f.astype(np.int32)).astype(np.uint32)
+        # host decode time = wall inside this window minus any fetch
+        # time the dense rows spend blocked on the device
+        t_host0 = _time.perf_counter()
+        t_fetch_at_host0 = self.sync["t_fetch_s"]
+        lo0 = head_p[0]
+        if P == 2:
+            lo0 = lo0 | (head_p[1] << np.uint64(32))
+        gaps = (packed >> cbits_row[:, None]).astype(np.uint64)
+        cnts = (packed & ((np.uint32(1) << cbits_row[:, None])
+                          - np.uint32(1))).astype(np.uint32)
+        is_exc = packed == 0xFFFFFFFF
+        gaps[is_exc] = 0
+        gaps[:, 0] = 0
+        keys = gaps
+        keys[:, 0] = lo0
+        np.cumsum(keys, axis=1, out=keys)
+        # exceptions: absolute key + count; the correction propagates
+        # to the rest of the row (later gaps are relative to the true
+        # predecessor); columns ascend, so applying in array order
+        # keeps each correction consistent downstream
+        for r in np.flatnonzero((n_exc_row > 0) & (n_exc_row <= EC)):
+            for j in range(int(n_exc_row[r])):
+                c = int(exc_col[r, j])
+                if c >= lmax:
+                    return None  # entry past the downloaded prefix
+                t = exc_p[0][r, j]
+                if P == 2:
+                    t = t | (exc_p[1][r, j] << np.uint64(32))
+                keys[r, c:] += t - keys[r, c]
+                cnts[r, c] = exc_cnt[r, j]
+        m = packed != 0
+        m[:, 0] = head_c > 0
+        cnts[:, 0] = head_c
+        if len(dense_rows):
+            dr = torch.from_numpy(dense_rows).to(self.device)
+            dk = self._fetch(self._dispatch(
+                torch.index_select, key[:, :lmax], 0, dr))
+            dc = self._fetch(self._dispatch(
+                torch.index_select, counts[:, :lmax], 0, dr)
+                .to(torch.int32)).view(np.uint32)
+            d2h_bytes += dk.nbytes + dc.nbytes
+            keys[dense_rows] = dk.view(np.uint64) ^ np.uint64(1 << 63)
+            cnts[dense_rows] = dc
+            m[dense_rows] = dc > 0
+        lo = keys[m]
+        cts = cnts[m]
+        hi = np.zeros(len(lo), np.uint64)
+        self.wire_d2h_bytes += d2h_bytes
+        self.sync["host_finalize_s"] += (_time.perf_counter() - t_host0
+                                         - self.sync["t_fetch_s"]
+                                         + t_fetch_at_host0)
+        return (hi, lo, cts.astype(np.uint64))
+
     def finalize(self):
         """-> sorted unique (hi, lo, counts-u32)."""
         self._resolve_batch()
@@ -461,18 +710,9 @@ class DeviceAccCounter:
 
         runs = list(self._fallback_runs)
         if self._acc is not None:
-            # dense download of the used row prefix
             t0 = _time.perf_counter()
-            lmax = min(self.La, accum._eighth_round(
-                max(256, getattr(self, "_max_run", self.La))))
-            keys = self._fetch(self._acc[0][:, :lmax].reshape(
-                (-1,) + self._tail()))
-            counts = self._fetch(self._acc[1][:, :lmax].reshape(-1))
-            self.wire_d2h_bytes += keys.nbytes + counts.nbytes
-            keepm = counts > 0
-            hi, lo = mw.to_hilo(keys[keepm], self.k)
-            runs.insert(0, (hi, lo, counts[keepm].astype(np.uint64)))
-            self.sync["host_finalize_s"] += _time.perf_counter() - t0
+            runs.insert(0, self.download())
+            self.sync["t_download_s"] += _time.perf_counter() - t0
         if self._ovf_keys:
             runs.append(self._capture_run())
         hi, lo, counts = merge_runs(runs)
@@ -488,9 +728,38 @@ class DeviceAccCounter:
         return hi, lo, counts
 
 
-def configure_counting(paths, k: int) -> dict:
-    """Expected k-mers from file sizes (x1 plain, x3 gz, x3.5 bz2, x4
-    xz), as the reference's configuration pass guesses them."""
+def device_bytes_per_base(k: int) -> int:
+    """Device bytes the host sort path holds for each base of a chunk,
+    from the program's structure (W = int64 words a key): the extracted
+    key and its masked copy (2 x 8W), the sorted keys with the sort's
+    int64 indices and its double buffer (8W + 8 + 8W + 8), the previous
+    chunk's sorted keys awaiting the host in the 1-deep pipeline (8W),
+    the valid and start masks (2); two words sort in two stable passes
+    and hold three more index-sized temporaries (24); with
+    MERYL_TPU_COMPACT=device the compaction holds six more (48).  On an
+    H100 a 2^22 chunk at k=21 peaks at 42 B a base, and at 102 with the
+    device compaction (PERF.md)."""
+    w = mw.num_words(k)
+    return 40 * w + 18 + 24 * (w - 1) + (48 if _compact_device() else 0)
+
+
+def device_memory_gb(device) -> float:
+    """Memory of the counting device in GB: MERYL_TPU_HBM_GB when set,
+    else the card's total memory, or the host's physical memory for
+    device=cpu."""
+    env = _os.environ.get("MERYL_TPU_HBM_GB")
+    if env:
+        return float(env)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory / 1e9
+    from .resources import physical_memory_bytes
+    return physical_memory_bytes() / 1e9
+
+
+def expected_kmers(paths) -> int:
+    """K-mers guessed from file sizes: x1 plain, x3 gz, x3.5 bz2, x4
+    xz."""
     if isinstance(paths, str):
         paths = [paths]
     exp = 0
@@ -506,33 +775,103 @@ def configure_counting(paths, k: int) -> dict:
             exp += sz * 4
         else:
             exp += sz
-    return {"k": k, "expected_kmers": int(exp)}
+    return int(exp)
 
 
-def _use_device_acc(paths, k, device) -> int:
+def configure_counting(paths, k: int, memory_gb: float | None = None,
+                       chunk_len: int | None = None,
+                       hbm_gb: float | None = None,
+                       device="cuda") -> dict:
+    """Counting plan: expected k-mers, device chunk size, batch count.
+
+    Expected k-mers are guessed from file sizes x1 (plain) / x3 (gz) /
+    x3.5 (bz2) / x4 (xz); the device chunk is the largest power of two
+    whose pipeline (device_bytes_per_base) fits half the device's
+    memory (hbm_gb, default device_memory_gb(device)); the batch count
+    bounds the host memory of the merged unique set by memory_gb
+    (default resources.max_memory_gb()).  One device: `devices` is 1
+    and `sharded` false."""
+    exp = expected_kmers(paths)
+    hbm = hbm_gb if hbm_gb is not None else device_memory_gb(device)
+    dev_bpb = device_bytes_per_base(k)
+    fit = int(hbm * 1e9 * 0.5 / dev_bpb)
+    max_chunk = 1 << max(16, fit.bit_length() - 1)
+    if chunk_len is None:
+        chunk_len = min(default_chunk(), max_chunk)
+    else:
+        chunk_len = min(chunk_len, max_chunk)
+
+    bytes_per_kmer = 8 + 8 + 4  # hi, lo, count on host
+    if memory_gb is None:
+        from .resources import max_memory_gb
+        memory_gb = max_memory_gb()
+    n_batches = max(1, int(np.ceil(exp * bytes_per_kmer
+                                   / (memory_gb * 1e9))))
+    return {
+        "k": k,
+        "expected_kmers": int(exp),
+        "chunk_len": int(chunk_len),
+        "device_bytes_per_base": dev_bpb,
+        "device_chunk_hbm_bytes": int(chunk_len) * dev_bpb,
+        "hbm_gb": hbm,
+        "devices": 1,
+        "sharded": False,
+        "host_bytes_per_kmer": bytes_per_kmer,
+        "memory_gb": memory_gb,
+        "host_peak_bytes": int(min(exp, np.ceil(exp / n_batches)) *
+                               bytes_per_kmer),
+        "batches": n_batches,
+        "batch_bases": int(np.ceil(exp / n_batches)),
+    }
+
+
+def _acc_admits(expected: int, k: int, device) -> bool:
+    """Whether `expected` k-mers (a file-size guess) fit the
+    accumulator's budget; the 0.35 FASTQ/dedup discount is the one the
+    accumulator sizes itself with.  If the uniques outgrow the budget
+    mid-run all the same, AccCapacity salvages the device state."""
+    return expected * 0.35 * acc_bytes_per_unique(k) <= \
+        acc_cap_bytes(device)
+
+
+def _use_device_acc(paths, k, device, count_suffix=None) -> int:
     """Expected-uniques estimate when the device-accumulator path
-    should run, else 0.  MERYL_TPU_DEVICE_ACC=1/0 forces; auto = on for
-    a CUDA device when the expected unique set fits the accumulator
-    budget."""
+    should run, else 0.  A count-suffix takes the host sort path (the
+    filter is not part of the routed step).  MERYL_TPU_DEVICE_ACC=1/0
+    forces; auto = on for a CUDA device when the expected unique set
+    fits the accumulator budget."""
+    if count_suffix is not None:
+        return 0
     env = _os.environ.get("MERYL_TPU_DEVICE_ACC", "auto")
     if env == "0":
         return 0
     try:
-        exp = min(configure_counting(paths, k)["expected_kmers"],
-                  4 ** k if k < 32 else 1 << 63)
+        exp = min(expected_kmers(paths), 4 ** k if k < 32 else 1 << 63)
     except OSError:
         return 0
     if env == "1":
         return max(1, exp)
-    if resolve_device(device).type != "cuda":
-        return 0
-    cap = int(float(_os.environ.get("MERYL_TPU_ACC_CAP_GB", 4.0)) * 1e9)
-    # keys + count as int64, x3 for the merge sort's working set; the
-    # 0.35 FASTQ/dedup discount is the one the accumulator sizes with
-    acc_bytes = (mw.num_words(k) + 1) * 8 * 3
-    if exp * 0.35 * acc_bytes > cap:
+    if resolve_device(device).type != "cuda" or \
+            not _acc_admits(exp, k, device):
         return 0
     return max(1, exp)
+
+
+def _refuse_multi_device():
+    """meryl_tpu counts on several devices when MERYL_TPU_SHARDED=1 or
+    a MERYL_TPU_COORD job of several processes asks for it; that is not
+    ported, and the port fails rather than count on one device
+    unasked."""
+    if _os.environ.get("MERYL_TPU_SHARDED") == "1":
+        asked = "MERYL_TPU_SHARDED"
+    elif ("MERYL_TPU_COORD" in _os.environ
+          and int(_os.environ.get("MERYL_TPU_NPROCS", "1")) > 1):
+        asked = "MERYL_TPU_COORD"
+    else:
+        return
+    raise ValueError(
+        f"{asked}={_os.environ[asked]} asks for multi-device counting, "
+        f"which is not yet ported in meryl_tpu_torch (ROADMAP.md item A10)")
 
 
 # wire volumes and sync counts of the most recent device-accumulator
@@ -584,12 +923,12 @@ def _prefetch_chunks(chunker, depth: int = 2, transform=None,
 
 def count_to_arrays_device_acc(paths, k: int, mode: str, hpc: bool,
                                chunk_len: int, expected_uniques: int,
-                               progress=None, device="cuda"):
+                               progress=None, device="cuda", segment=None):
     acc = DeviceAccCounter(k, mode, chunk_len, expected_uniques, device)
     nbases = 0
     reader_stats: dict = {}
     it = iter(_prefetch_chunks(SequenceChunker(paths, k, chunk_len,
-                                               hpc=hpc),
+                                               hpc=hpc, segment=segment),
                                depth=4, transform=acc.prepack,
                                stats=reader_stats))
     salvage_runs = None
@@ -645,30 +984,40 @@ def count_to_arrays_device_acc(paths, k: int, mode: str, hpc: bool,
     return out
 
 
-def count_to_arrays(paths, k: int, mode: str = "canonical",
-                    hpc: bool = False, chunk_len: int | None = None,
-                    progress=None, device="cuda"):
-    """Count k-mers in sequence files on `device` ("cuda" or
-    "cpu"; no fallback from one to the other).  Returns sorted
-    (hi, lo, counts)."""
+def _check_count_args(k: int, mode: str):
     if not 1 <= k <= km.K_MAX:
         raise ValueError(f"k must be in [1, {km.K_MAX}], got {k}")
     if mode not in ("canonical", "forward", "reverse"):
         raise ValueError(f"mode must be canonical, forward or reverse, "
                          f"got {mode!r}")
+    _refuse_multi_device()
+
+
+def count_to_arrays(paths, k: int, mode: str = "canonical",
+                    hpc: bool = False, chunk_len: int | None = None,
+                    progress=None, device="cuda",
+                    count_suffix: str | None = None, segment=None):
+    """Count k-mers in sequence files on `device` ("cuda" or
+    "cpu"; no fallback from one to the other).  count_suffix: count
+    only k-mers that end in these bases; segment=(a, b): only sequences
+    with index % b == a - 1.  Returns sorted (hi, lo, counts)."""
+    _check_count_args(k, mode)
     dev = resolve_device(device)
     chunk_len = chunk_len or default_chunk()
-    exp_uniques = _use_device_acc(paths, k, dev)
+    exp_uniques = _use_device_acc(paths, k, dev, count_suffix)
     if exp_uniques:
         return count_to_arrays_device_acc(
             paths, k, mode=mode, hpc=hpc, chunk_len=chunk_len,
-            expected_uniques=exp_uniques, progress=progress, device=dev)
+            expected_uniques=exp_uniques, progress=progress, device=dev,
+            segment=segment)
+    suffix = _parse_suffix(count_suffix, k)
     runs = []
     nbases = 0
     pending = None  # 1-deep pipeline: the device works on chunk i+1
     #                 while the host finishes chunk i
-    for chunk in SequenceChunker(paths, k, chunk_len, hpc=hpc):
-        result = _count_chunk(chunk, k, mode, dev)
+    for chunk in SequenceChunker(paths, k, chunk_len, hpc=hpc,
+                                 segment=segment):
+        result = _count_chunk(chunk, k, mode, dev, suffix)
         if pending is not None:
             runs.extend(_finish_chunk(*pending))
         pending = result
@@ -682,9 +1031,208 @@ def count_to_arrays(paths, k: int, mode: str = "canonical",
 
 def count_to_db(paths, out_path: str, k: int, mode: str = "canonical",
                 hpc: bool = False, chunk_len: int | None = None,
-                progress=None, device="cuda") -> MerylDB:
-    """Count to a meryl DB (written by the port's copy of db.py)."""
+                progress=None, device="cuda",
+                count_suffix: str | None = None, segment=None,
+                memory_gb: float | None = None) -> MerylDB:
+    """Count to a meryl DB.  memory_gb is a real bound: when the plan
+    says the merged unique set may pass it, the count runs in batches
+    (count_to_db_batched); otherwise the plan's chunk size is used."""
+    if memory_gb is not None and count_suffix is None:
+        plan = configure_counting(paths, k, memory_gb, chunk_len,
+                                  device=device)
+        if plan["batches"] > 1:
+            return count_to_db_batched(
+                paths, out_path, k, mode=mode, hpc=hpc,
+                chunk_len=plan["chunk_len"], memory_gb=memory_gb,
+                segment=segment, progress=progress, device=device)
+        chunk_len = plan["chunk_len"]
     hi, lo, counts = count_to_arrays(paths, k, mode=mode, hpc=hpc,
                                      chunk_len=chunk_len,
-                                     progress=progress, device=device)
+                                     progress=progress, device=device,
+                                     count_suffix=count_suffix,
+                                     segment=segment)
     return MerylDB.write(out_path, k, hi, lo, counts, mode=mode, hpc=hpc)
+
+
+# what the most recent count_to_db_batched did: chunks seen, batches,
+# the indices skipped as done by an earlier run, and a dict a counted
+# batch (bases, wall seconds, k-mers, whether the device accumulator
+# carried it to the end)
+LAST_BATCH_STATS: dict = {}
+
+
+def count_to_db_batched(paths, out_path: str, k: int, *,
+                        mode: str = "canonical", hpc: bool = False,
+                        chunk_len: int | None = None,
+                        batch_bases: int | None = None,
+                        memory_gb: float | None = None,
+                        segment=None, resume: bool = True,
+                        progress=None, device="cuda") -> MerylDB:
+    """Out-of-core, restartable counting.
+
+    The input stream is split into batches of ~batch_bases; each batch
+    is counted and written as a partial DB `<out>.batch<i>`, with a
+    manifest `<out>.manifest.json` recording completion (same names and
+    keys as meryl_tpu's, so a run begun by either package is resumed or
+    refused alike).  Completed batches are skipped on resume; the final
+    union-sum over the partials writes the output DB and removes them.
+    """
+    import itertools
+    import json
+    import shutil
+
+    _check_count_args(k, mode)
+    dev = resolve_device(device)
+    chunk_len = chunk_len or default_chunk()
+    if batch_bases is None:
+        batch_bases = configure_counting(paths, k, memory_gb, chunk_len,
+                                         device=dev)["batch_bases"]
+    manifest_path = out_path + ".manifest.json"
+    # chunk_len and segment are part of the resume identity: batch
+    # boundaries are counted in chunks, so another chunk size (or input
+    # segment) renames which bases "batch i" covers
+    manifest = {"k": k, "mode": mode, "hpc": hpc,
+                "batch_bases": batch_bases, "chunk_len": chunk_len,
+                "segment": list(segment) if segment else None,
+                "done": []}
+    if resume and _os.path.exists(manifest_path):
+        with open(manifest_path) as f:
+            old = json.load(f)
+        if all(old.get(key) == manifest[key]
+               for key in ("k", "mode", "hpc", "batch_bases",
+                           "chunk_len", "segment")):
+            manifest["done"] = old.get("done", [])
+    done_before = frozenset(manifest["done"])
+
+    def save_manifest():
+        with open(manifest_path, "w") as f:
+            json.dump(manifest, f)
+
+    chunks_per_batch = max(1, int(np.ceil(batch_bases / chunk_len)))
+
+    # per-batch device accumulator: a batch is sized to fit, so its
+    # dedup stays on the device.  The gate is _use_device_acc's, for
+    # ONE batch's uniques; AccCapacity mid-batch salvages exactly and
+    # that batch finishes on the host path (the next batch tries again)
+    acc_exp = 0
+    env_acc = _os.environ.get("MERYL_TPU_DEVICE_ACC", "auto")
+    exp_b = min(batch_bases, 4 ** k if k < 32 else 1 << 63)
+    if env_acc == "1" or (env_acc != "0" and dev.type == "cuda"
+                          and _acc_admits(exp_b, k, dev)):
+        acc_exp = max(1, exp_b)
+
+    # deterministic: the manifest names a batch by its chunk indices, so
+    # the chunk stream must be bit-reproducible.  The reader thread
+    # packs the chunks of the batches still to count and passes only
+    # the length of a skipped one
+    seen = itertools.count()
+
+    def transform(codes):
+        if next(seen) // chunks_per_batch in done_before:
+            return len(codes)
+        return prepack(codes, chunk_len)
+
+    chunks = _prefetch_chunks(
+        SequenceChunker(paths, k, chunk_len, hpc=hpc, segment=segment,
+                        deterministic=True), depth=4, transform=transform)
+
+    batch_idx = 0
+    runs = []
+    acc = None
+    nchunks = 0
+    nbases = 0
+    stats = {"batches": 0, "chunks": 0, "skipped": sorted(done_before),
+             "counted": []}
+    cur = {"bases": 0, "t0": _time.perf_counter()}
+
+    def flush_batch(idx):
+        nonlocal acc
+        if idx in manifest["done"]:
+            acc = None
+            return  # counted by an earlier run
+        parts = list(runs)
+        on_device = acc is not None and not parts
+        if acc is not None:
+            try:
+                parts.append(acc.finalize())
+            except AccCapacity:  # the final merge outgrew the budget
+                parts.extend(acc.salvage())
+                on_device = False
+            acc = None
+        hi, lo, counts = parts[0] if len(parts) == 1 \
+            else merge_runs(parts)
+        MerylDB.write(f"{out_path}.batch{idx}", k, hi, lo, counts,
+                      mode=mode, hpc=hpc)
+        manifest["done"].append(idx)
+        save_manifest()
+        stats["counted"].append(
+            {"batch": idx, "bases": cur["bases"], "kmers": len(lo),
+             "wall_s": round(_time.perf_counter() - cur["t0"], 4),
+             "device_acc": on_device})
+
+    for chunk in chunks:
+        batch_idx_cur = nchunks // chunks_per_batch
+        nchunks += 1
+        if isinstance(chunk, int):
+            nbases += chunk
+            continue  # resume: a chunk of a completed batch
+        nbases += chunk[4]
+        if batch_idx_cur != batch_idx and (runs or acc is not None):
+            flush_batch(batch_idx)
+            runs = []
+        if batch_idx_cur != batch_idx or not cur["bases"]:
+            cur.update(bases=0, t0=_time.perf_counter())
+        batch_idx = batch_idx_cur
+        cur["bases"] += chunk[4]
+        if acc_exp and acc is None and not runs:
+            acc = DeviceAccCounter(k, mode, chunk_len, acc_exp, dev)
+        if acc is not None:
+            try:
+                acc.add_codes(chunk)
+            except AccCapacity:
+                # salvage is exact and includes everything staged; the
+                # rest of THIS batch runs on the host path
+                runs.extend(acc.salvage())
+                acc = None
+        else:
+            wire = _wire_tensors(chunk[1], chunk[2], dev)
+            runs.extend(_finish_chunk(*_count_chunk(
+                wire + (chunk[3],), k, mode, dev)))
+        if progress:
+            progress(nbases)
+    stats.update(chunks=nchunks)
+    LAST_BATCH_STATS.clear()
+    LAST_BATCH_STATS.update(stats)
+    if nchunks == 0:  # empty input
+        z = np.zeros(0, np.uint64)
+        if _os.path.exists(manifest_path):
+            _os.remove(manifest_path)
+        return MerylDB.write(out_path, k, z, z.copy(),
+                             np.zeros(0, np.uint32), mode=mode, hpc=hpc)
+    n_batches = (nchunks + chunks_per_batch - 1) // chunks_per_batch
+    if runs or acc is not None or batch_idx not in manifest["done"]:
+        flush_batch(batch_idx)
+    batch_paths = [f"{out_path}.batch{i}" for i in range(n_batches)]
+    LAST_BATCH_STATS.update(batches=n_batches)
+
+    # final merge: union-sum over the batch partials
+    t0 = _time.perf_counter()
+    if len(batch_paths) == 1 and _os.path.exists(batch_paths[0]):
+        if _os.path.exists(out_path):
+            shutil.rmtree(out_path)
+        _os.rename(batch_paths[0], out_path)
+        db = MerylDB.open(out_path)
+    else:
+        from .optree import DBInput, OpNode, execute_root
+        node = OpNode(op="union-sum",
+                      inputs=[DBInput(p) for p in batch_paths
+                              if _os.path.exists(p)],
+                      output_path=out_path)
+        db = execute_root(node, k, device=dev)
+        for p in batch_paths:
+            shutil.rmtree(p, ignore_errors=True)
+    LAST_BATCH_STATS.update(
+        merge_wall_s=round(_time.perf_counter() - t0, 4))
+    if _os.path.exists(manifest_path):
+        _os.remove(manifest_path)
+    return db

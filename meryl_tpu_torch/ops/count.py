@@ -1,6 +1,9 @@
 """Sort and run-length count of extracted k-mers (counterpart of
 meryl_tpu/ops/count.py) for the host sort path: the exactness hatches
-of the device accumulator recount a chunk here.
+of the device accumulator recount a chunk here.  The compacted variants
+(sort_count_compacted, merge_counted, merge_many) leave the unique
+entries at the front of the array on the device, and value_histogram
+bins counts.
 
 Invalid windows are forced to the sentinel key, which sorts last.  The
 real all-ones k-mer aliases the sentinel when 2k % 32 == 0; the
@@ -95,3 +98,79 @@ def host_rle_finish(skeys_np, start_np, n_invalid, rowlen=None):
             counts = counts[keep]
     keys = [p[idx] for p in skeys_np]
     return keys, counts.astype(np.uint64), idx
+
+
+def _compact_by_flag(flag: torch.Tensor, payloads, k: int | None = None):
+    """Stable-sort payloads so entries with flag=True come first, in
+    their original order.  A payload with a trailing word axis (a
+    two-word key) is gathered by position when k is given."""
+    order = torch.sort((~flag).to(torch.int8), stable=True).indices
+    return [mw.take(p, order, k) if p.dim() > 1 else p[order]
+            for p in payloads]
+
+
+def sort_count_compacted(key: torch.Tensor, valid: torch.Tensor, k: int):
+    """sort_count with the unique entries compacted to the front on the
+    device (MERYL_TPU_COMPACT=device downloads only that prefix).
+
+    -> (unique keys, counts, n_unique); entries past n_unique hold the
+    sentinel key with count 0."""
+    L = valid.shape[0]
+    dev = key.device
+    sent = mw.sentinel(k, dev)
+    n_invalid = (~valid).sum()
+    skey, _ = mw.sort(mw.where(valid, key, sent, k), k)
+    start = mw.run_starts(skey, k)
+    end = torch.cat([start[1:], torch.ones(1, dtype=torch.bool,
+                                           device=dev)])
+    idx = torch.arange(L, device=dev)
+    spos, ckey = _compact_by_flag(start, (idx, skey), k)
+    (epos,) = _compact_by_flag(end, (idx,))
+    counts = epos - spos + 1
+    in_range = idx < start.sum()
+    is_sent = mw.is_sentinel(ckey, k) & in_range
+    counts = counts - torch.where(is_sent, n_invalid, 0)
+    keep = in_range & (counts > 0)
+    return (mw.where(keep, ckey, sent, k), torch.where(keep, counts, 0),
+            keep.sum())
+
+
+def merge_many(keys_list, counts_list, k: int):
+    """Merge any number of sorted unique sentinel-padded runs (count 0
+    marks padding) into one compacted run of their total length: concat
+    + sort, then per-run count sums from prefix-sum differences.  Sums
+    wrap modulo 2^32, as the reference's uint32 counts do.
+    -> (unique keys, counts, n_unique)."""
+    key = torch.cat(list(keys_list))
+    w = torch.cat(list(counts_list))
+    L = w.shape[0]
+    dev = w.device
+    skey, (w,) = mw.sort(key, k, (w,))
+    start = mw.run_starts(skey, k)
+    end = torch.cat([start[1:], torch.ones(1, dtype=torch.bool,
+                                           device=dev)])
+    pre_inc = torch.cumsum(w, 0)
+    sum_before, ckey = _compact_by_flag(start, (pre_inc - w, skey), k)
+    (sum_through,) = _compact_by_flag(end, (pre_inc,))
+    counts = (sum_through - sum_before) & 0xFFFFFFFF
+    keep = (torch.arange(L, device=dev) < start.sum()) & (counts > 0)
+    return (mw.where(keep, ckey, mw.sentinel(k, dev), k),
+            torch.where(keep, counts, 0), keep.sum())
+
+
+def merge_counted(key_a, counts_a, key_b, counts_b, k: int):
+    """merge_many of two runs."""
+    return merge_many([key_a, key_b], [counts_a, counts_b], k)
+
+
+def value_histogram(counts: torch.Tensor, num_values: int) -> torch.Tensor:
+    """h[v] = number of entries with count v; counts >= num_values fall
+    into the last bin; h[0] is forced to 0, so zero-count padding is
+    ignored.  One torch.bincount (the reference's blocked
+    compare-and-reduce scan avoids a scatter that is slow on its
+    device; the result is the same)."""
+    h = torch.bincount(torch.clamp(counts.to(torch.int64),
+                                   max=num_values - 1),
+                       minlength=num_values)
+    h[0] = 0
+    return h

@@ -71,6 +71,9 @@ class OpNode:
     output_path: str | None = None
     print_path: str | None = None   # "-" = stdout
     print_acgt: bool = False
+    expected_kmers: int | None = None
+    count_suffix: str | None = None
+    segment: tuple[int, int] | None = None
 
     def is_counting(self) -> bool:
         return self.op in COUNT_OPS

@@ -192,18 +192,162 @@ def test_cuda_device_without_cuda_fails_clearly(reads, monkeypatch,
     assert not os.path.exists(str(root / "x.meryl"))
 
 
-@pytest.mark.parametrize("word,item", [("memory=4", "A11"),
-                                       ("count-suffix=ACG", "A13"),
-                                       ("threads=4", "A11"),
-                                       ("n=1000", "A11"),
-                                       ("-C", "A11"),
-                                       ("segment=1/2", "A10")])
-def test_unported_words_name_roadmap_item(reads, capsys, word, item):
+@pytest.mark.parametrize("env,value,item", [
+    ("MERYL_TPU_SHARDED", "1", "A10"),
+    ("MERYL_TPU_COORD", "localhost:1234", "A10")])
+def test_unported_words_name_roadmap_item(reads, capsys, monkeypatch, env,
+                                          value, item):
+    """Every word of meryl_tpu's CLI runs in the port; what is left to
+    port is the multi-device counting that the environment asks for."""
     root, fq = reads
-    assert cli.main(["count", "k=21", fq, word, "output",
+    monkeypatch.setenv(env, value)
+    monkeypatch.setenv("MERYL_TPU_NPROCS", "2")
+    assert cli.main(["count", "k=21", fq, "output",
                      str(root / "y.meryl"), "device=cpu"]) == 1
     err = capsys.readouterr().err
     assert "not yet ported in meryl_tpu_torch" in err and item in err
+    assert not os.path.exists(str(root / "y.meryl"))
+
+
+COUNT_WORD_CASES = [
+    ["memory=0.00001"], ["memory=0.00001", "threads=2"], ["memory=64"],
+    ["threads=3"], ["n=1000"], ["count-suffix=ACG"], ["count-suffix=T"],
+    ["segment=1/2"], ["segment=2/3"], ["segment=1/2", "memory=0.00001"],
+    ["count-suffix=GA", "memory=0.00001"], ["compress", "memory=0.00002"],
+    ["n=5", "threads=1", "memory=0.00003", "segment=1/1"],
+]
+
+
+@pytest.mark.parametrize("op", ["count", "count-forward"])
+@pytest.mark.parametrize("words", COUNT_WORD_CASES,
+                         ids=lambda w: "_".join(w))
+def test_count_words_match_reference(reads, tmp_path, monkeypatch, op,
+                                     words):
+    """memory= / threads= / n= / count-suffix= / segment= through both
+    packages' cli.main: equal DBs.  MERYL_TPU_CHUNK keeps the chunks
+    small so that a small memory= makes several batches."""
+    monkeypatch.setenv("MERYL_TPU_SHARDED", "0")
+    monkeypatch.setenv("MERYL_TPU_CHUNK", str(1 << 12))
+    monkeypatch.delenv("MERYL_TPU_THREADS", raising=False)
+    root, fq = reads
+    from meryl_tpu_torch import counter
+    counter.LAST_BATCH_STATS.clear()
+    ref_db, db = str(tmp_path / "ref.meryl"), str(tmp_path / "port.meryl")
+    assert ref_cli.main(["k=21", *words, op, fq, "output", ref_db]) == 0
+    ref_threads = os.environ.get("MERYL_TPU_THREADS")
+    monkeypatch.delenv("MERYL_TPU_THREADS", raising=False)
+    assert cli.main(["k=21", *words, op, fq, "output", db,
+                     "device=cpu"]) == 0
+    assert os.environ.get("MERYL_TPU_THREADS") == ref_threads
+    monkeypatch.delenv("MERYL_TPU_THREADS", raising=False)
+    assert _db(db) == _db(ref_db) and _db(db)
+    batched = any(w.startswith("memory=0.0000") for w in words) and \
+        not any(w.startswith("count-suffix") for w in words)
+    assert (counter.LAST_BATCH_STATS.get("batches", 0) >= 3) == batched
+    assert not os.path.exists(db + ".manifest.json")
+
+
+def test_count_suffix_on_a_node_inside_a_tree(reads, tmp_path, monkeypatch):
+    """count-suffix= and segment= bind to the counting node they follow,
+    not to the command."""
+    monkeypatch.setenv("MERYL_TPU_SHARDED", "0")
+    root, fq = reads
+    outs = {}
+    for name, main, extra in (("ref", ref_cli.main, []),
+                              ("port", cli.main, ["device=cpu"])):
+        db = str(tmp_path / f"{name}.meryl")
+        assert main(["k=21", "union-sum", "[count", "count-suffix=AC", fq,
+                     "]", "[count", "segment=1/2", fq, "]", "output", db,
+                     *extra]) == 0
+        outs[name] = _db(db)
+    assert outs["port"] == outs["ref"] and outs["ref"]
+
+
+def test_count_suffix_longer_than_k_fails_like_reference(reads, tmp_path,
+                                                         capsys,
+                                                         monkeypatch):
+    monkeypatch.setenv("MERYL_TPU_SHARDED", "0")
+    root, fq = reads
+    words = ["k=5", "count", "count-suffix=ACGTAC", fq, "output",
+             str(tmp_path / "x.meryl")]
+    assert ref_cli.main(words) == 1
+    ref_err = capsys.readouterr().err
+    assert cli.main(words + ["device=cpu"]) == 1
+    err = capsys.readouterr().err
+    assert "count-suffix longer than k" in err
+    assert err.replace("meryl-torch:", "meryl:") == ref_err
+
+
+HOST_PLAN_KEYS = ("k", "expected_kmers", "host_bytes_per_kmer", "memory_gb",
+                  "host_peak_bytes", "batches", "batch_bases")
+
+
+def _plan_lines(err):
+    return dict(ln.strip().split(": ", 1) for ln in err.splitlines()
+                if ln.startswith("  ") and ": " in ln
+                and not ln.startswith("  input"))
+
+
+@pytest.mark.parametrize("words", [["-C", "memory=0.001"],
+                                   ["memory=0.00001", "-C"],
+                                   ["-C", "memory=64", "threads=2"]],
+                         ids=lambda w: "_".join(w))
+def test_configure_only_matches_reference(reads, tmp_path, capsys,
+                                          monkeypatch, words):
+    """-C: the tree and the plan on stderr, exit 0, nothing counted; the
+    host keys equal the reference's, the device keys are the port's
+    own, and no multi-device scaling table is printed."""
+    monkeypatch.delenv("MERYL_TPU_HBM_GB", raising=False)
+    root, fq = reads
+    out = str(tmp_path / "x.meryl")
+    argv = ["k=21", *words, "count", fq, "output", out]
+    assert ref_cli.main(argv) == 0
+    ref_err = capsys.readouterr().err
+    assert cli.main(argv + ["device=cpu"]) == 0
+    got = capsys.readouterr()
+    monkeypatch.delenv("MERYL_TPU_THREADS", raising=False)
+    assert not os.path.exists(out) and got.out == ""
+    # the action tree reads alike
+    assert got.err.splitlines()[:2] == ref_err.splitlines()[:2]
+    plan, ref_plan = _plan_lines(got.err), _plan_lines(ref_err)
+    assert [k for k in ref_plan if not k[0].isdigit()][:13] == list(plan)
+    for key in HOST_PLAN_KEYS:
+        assert plan[key] == ref_plan[key], key
+    from meryl_tpu_torch import counter
+    from meryl_tpu_torch.resources import physical_memory_bytes
+    assert float(plan["hbm_gb"]) == physical_memory_bytes() / 1e9
+    assert int(plan["device_bytes_per_base"]) == \
+        counter.device_bytes_per_base(21)
+    assert plan["devices"] == "1" and plan["sharded"] == "False"
+    assert "predicted scaling" in ref_err
+    assert "scaling" not in got.err and "devices (" not in got.err
+
+
+@pytest.mark.parametrize("tail", [["output"], ["print"],
+                                  ["print", "output"], ["output", "print"],
+                                  ["printACGT", "output"]],
+                         ids=lambda t: "_".join(t))
+def test_trailing_output_parses_like_reference(tmp_path, capsysbinary,
+                                               monkeypatch, tail):
+    """An argv that ends in `output` (no path) or `print` parses in the
+    reference: the count goes to a temporary DB and exits 0."""
+    monkeypatch.setenv("MERYL_TPU_SHARDED", "0")
+    monkeypatch.chdir(tmp_path)  # `output print` writes a DB "print"
+    fa = str(tmp_path / "r.fa")
+    with open(fa, "w") as f:
+        f.write(">s\nACGTTGCATGCCGATAGCTAGGATC\n>t\nACGTTGCATGNCGAT\n")
+    argv = ["k=5", "count", fa, *tail]
+    ref_b, b = ref_cli.build(argv), cli.build(argv + ["device=cpu"])
+    assert [(r.op, r.output_path, r.print_path, r.print_acgt)
+            for r in b.roots] == \
+        [(r.op, r.output_path, r.print_path, r.print_acgt)
+         for r in ref_b.roots]
+    assert ref_cli.main(argv) == 0
+    want = capsysbinary.readouterr().out
+    assert cli.main(argv + ["device=cpu"]) == 0
+    assert capsysbinary.readouterr().out == want
+    # `output print` names the DB "print": nothing is printed
+    assert bool(want) == any(r.print_path for r in ref_b.roots)
 
 
 # ------------------------------------------------------------- set ops

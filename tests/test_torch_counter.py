@@ -186,7 +186,7 @@ def test_capacity_budget_counts_held_state():
     while new_la < int(n_runs.max()):
         new_la *= 2
     # enough for the grown merge's working set, not for the held state
-    acc._cap_bytes = new_la * acc.B * 2 * 8 * 3 + 1
+    acc._cap_bytes = new_la * acc.B * counter.acc_bytes_per_unique(21) + 1
     with pytest.raises(counter.AccCapacity):
         acc._verify_merge()
     assert acc._acc is old_acc and acc.La == la

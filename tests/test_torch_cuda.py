@@ -386,3 +386,127 @@ def test_count_cuda_matches_cpu(cuda, tmp_path, monkeypatch, acc):
                                    device="cpu")
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+# ------------------------------------- downloads, batches, suffix, plan
+
+def _fed(k, codes, dev, chunk=1 << 14, exp=1 << 14):
+    acc = counter.DeviceAccCounter(k, "forward", chunk, exp, device=dev)
+    for s in range(0, len(codes), chunk):
+        acc.add_codes(codes[s:s + chunk])
+    return acc
+
+
+@pytest.mark.parametrize("k", [10, 16, 21, 32, 33])
+def test_downloads_equal_on_card(cuda, monkeypatch, k):
+    """The pinned dense download and the gap-packed one decode to what
+    the pageable int64 download gives, and to the CPU's result."""
+    from meryl_tpu_torch.tools.ab_download import download_pageable_int64
+    monkeypatch.setattr(counter, "PIN_MIN_BYTES", 1 << 12)  # pin here too
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, size=1 << 17).astype(np.uint8)
+    codes[rng.integers(0, len(codes), size=200)] = 255
+    codes[5000:5000 + 3 * k] = 3           # the all-ones k-mer
+    codes[7000:7000 + 21 * 900] = np.tile(codes[7000:7021], 900)  # hot
+    outs = {}
+    for arm in ("pageable", "dense", "packed", "cpu"):
+        acc = _fed(k, codes, "cpu" if arm == "cpu" else cuda)
+        monkeypatch.setenv("MERYL_TPU_PACK_D2H",
+                           "1" if arm == "packed" else "0")
+        if arm == "pageable":
+            acc.download = lambda acc=acc: download_pageable_int64(acc)
+        outs[arm] = acc.finalize()
+    for arm in ("dense", "packed", "cpu"):
+        for a, b in zip(outs[arm], outs["pageable"]):
+            np.testing.assert_array_equal(a, b)
+    assert len(outs["cpu"][2]) > 1000
+
+
+@pytest.mark.parametrize("n", [10, (1 << 17) - 1, 1 << 17, (1 << 20) + 3])
+def test_to_host_small_and_pinned(cuda, n):
+    x = torch.arange(n, dtype=torch.int64, device=cuda) * 3 - 7
+    np.testing.assert_array_equal(counter._to_host(x), x.cpu().numpy())
+    np.testing.assert_array_equal(counter._to_host(x.cpu()),
+                                  x.cpu().numpy())
+
+
+@pytest.mark.parametrize("k,bases", [(12, 10 ** 6), (21, 40_000),
+                                     (32, 5)])
+def test_pack_for_download_cuda_matches_cpu(cuda, k, bases):
+    rng = np.random.default_rng(k)
+    B, La = 16, 512
+    n = rng.integers(0, La, size=B)
+    gaps = rng.integers(1, 1 << min(20, 2 * k - 10), size=(B, La))
+    gaps[:, La // 3] = 1 << min(40, 2 * k - 6)
+    u = np.cumsum(gaps, axis=1).astype(np.uint64)
+    valid = np.arange(La)[None, :] < n[:, None]
+    key = mw.from_hilo(np.zeros(B * La, np.uint64), u.reshape(-1), k) \
+        .reshape(B, La)
+    key[~valid] = mw.sentinel_words(k)[0]
+    cnt = np.where(valid, rng.integers(1, 1 << 12, size=(B, La)), 0)
+    cnt[:, 5] = np.where(valid[:, 5], (1 << 32) - 1, 0)
+    key, cnt = torch.from_numpy(key), torch.from_numpy(cnt)
+    want = accum.pack_for_download_fused(key, cnt, k, bases, 384)
+    got = accum.pack_for_download_fused(key.to(cuda), cnt.to(cuda), k,
+                                        bases, 384)
+    assert torch.equal(got.cpu(), want)
+
+
+def _reads_file(tmp_path, n=400, ln=400, seed=5):
+    rng = np.random.default_rng(seed)
+    fa = str(tmp_path / "in.fa")
+    with open(fa, "w") as f:
+        for i in range(n):
+            s = "".join("ACTG"[c] for c in rng.integers(0, 4, ln))
+            f.write(f">s{i}\n{s}\n{'G' * 40 if i % 50 == 0 else ''}\n")
+    return fa
+
+
+@pytest.mark.parametrize("acc", ["1", "0", "auto"])
+def test_batched_cuda_matches_plain(cuda, tmp_path, monkeypatch, acc):
+    """memory= through count_to_db on the card: several batches, their
+    union-sum through the row-sort kernel, equal to the unbatched
+    count."""
+    monkeypatch.setenv("MERYL_TPU_DEVICE_ACC", acc)
+    fa = _reads_file(tmp_path)
+    plain = counter.count_to_db([fa], str(tmp_path / "p.meryl"), 21,
+                                chunk_len=1 << 14, device="cuda")
+    before = extract_cuda.LAUNCHES, rowsort.LAUNCHES
+    db = counter.count_to_db([fa], str(tmp_path / "b.meryl"), 21,
+                             chunk_len=1 << 14, memory_gb=0.0008,
+                             device="cuda")
+    st = counter.LAST_BATCH_STATS
+    assert st["batches"] >= 3 and len(st["counted"]) == st["batches"]
+    assert all(b["device_acc"] == (acc != "0") for b in st["counted"])
+    assert extract_cuda.LAUNCHES - before[0] >= st["chunks"]
+    assert rowsort.LAUNCHES > before[1]
+    for a, b in zip(db.load_all(), plain.load_all()):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("compact", ["host", "device"])
+@pytest.mark.parametrize("k,mode,suffix", [(21, "canonical", "ACG"),
+                                           (33, "forward", "T"),
+                                           (21, "canonical", None)])
+def test_suffix_and_compact_cuda_match_cpu(cuda, tmp_path, monkeypatch, k,
+                                           mode, suffix, compact):
+    monkeypatch.setenv("MERYL_TPU_DEVICE_ACC", "0")
+    monkeypatch.setenv("MERYL_TPU_COMPACT", compact)
+    fa = _reads_file(tmp_path, n=100)
+    kw = dict(mode=mode, chunk_len=1 << 14, count_suffix=suffix)
+    got = counter.count_to_arrays([fa], k, device="cuda", **kw)
+    monkeypatch.setenv("MERYL_TPU_COMPACT", "host")
+    want = counter.count_to_arrays([fa], k, device="cpu", **kw)
+    assert len(want[2])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_plan_reports_the_cards_memory(cuda, tmp_path, monkeypatch):
+    monkeypatch.delenv("MERYL_TPU_HBM_GB", raising=False)
+    fa = _reads_file(tmp_path, n=10)
+    plan = counter.configure_counting([fa], 21)
+    total = torch.cuda.get_device_properties(0).total_memory
+    assert plan["hbm_gb"] == total / 1e9
+    assert plan["device_chunk_hbm_bytes"] <= total * 0.5
+    assert plan["devices"] == 1 and plan["sharded"] is False
