@@ -55,6 +55,21 @@ Phases, each printing its lines; any failure exits non-zero:
  13. download A/B: the accumulator's three downloads (pageable int64,
      pinned int32, gap-packed) in turns on phase 6's input, each
      decoding to the same arrays, ms and GB/s an arm
+ 14. lookup: every meryl-lookup mode through the CLI with phase 6's
+     genome as the assembly and 20,000 reads (and as many mates) of
+     phase 6's FASTQ, against DBs a and b (b with -min 2 for -include /
+     -exclude), and position-lookup of the reads against a DB counted
+     from the genome; each output against a numpy brute force over the
+     decoded DBs; the extraction kernel's launches over these runs, each
+     run's own above 0 (position-lookup's DB is counted before they
+     start); the table's device bytes beside estimate_memory_bytes; then
+     values_bulk forced through each regime (binary search, routed join,
+     grid join, values_join, values_host, segmented grid) on 2^23
+     queries, half hits, against DB a and a 2^16-entry table, Mq/s a
+     regime; the grid join again on 2^23 uniform queries, where every
+     slab must resolve on the card (a half-hit row whose slabs the router
+     all refused prints as the host search, with the refused slab's
+     coarse-row counts against capA)
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs CUDA; imports no JAX.
 """
@@ -979,6 +994,450 @@ def phase_download_ab(ab_download, fq):
               f"{fin[0]:.3f}-{fin[-1]:.3f} s")
 
 
+# ------------------------------------------------------------- lookup
+
+LOOKUP_READS = 20_000    # reads (and as many mates) of phase 14's read modes
+REGIME_Q = 1 << 23       # queries a regime timing
+SMALL_TABLE = 1 << 16
+
+
+class _ArraysDB:
+    """A DB in memory: what ExactLookup reads of a MerylDB."""
+
+    def __init__(self, k, hi, lo, counts, mode="canonical"):
+        self.k, self.mode = k, mode
+        self._t = (hi, lo, counts)
+
+    def load_all(self):
+        return self._t
+
+
+def _fwd_rev(codes, k):
+    """(n, L) codes (4 = N) -> forward and reverse-complement uint64
+    k-mers (n, L - k + 1) and their valid mask (no N in the window)."""
+    n, ln = codes.shape
+    w = ln - k + 1
+    c = codes.astype(np.uint64) & np.uint64(3)
+    f = np.zeros((n, w), np.uint64)
+    r = np.zeros((n, w), np.uint64)
+    for j in range(k):
+        f = f * np.uint64(4) + c[:, j:j + w]
+        r = r + (c[:, j:j + w] ^ np.uint64(2)) * np.uint64(4 ** j)
+    bad = np.concatenate([np.zeros((n, 1), np.int32),
+                          np.cumsum(codes == 4, axis=1, dtype=np.int32)],
+                         axis=1)
+    return f, r, (bad[:, k:] - bad[:, :w]) == 0
+
+
+def _np_values(keys, counts, q):
+    """Brute-force lookup: value of each query in sorted unique keys."""
+    i = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+    return np.where(keys[i] == q, counts[i], 0).astype(np.int64)
+
+
+def _table(path):
+    """A text file of whitespace-separated columns, the same number on
+    every line -> (n_lines, n_cols) bytes array."""
+    with open(path, "rb") as f:
+        data = f.read()
+    tok = data.split()
+    n = data.count(b"\n")
+    if n == 0 or len(tok) % n:
+        raise AssertionError(f"{path}: empty or ragged")
+    return np.array(tok).reshape(n, len(tok) // n)
+
+
+def _ints(col):
+    return col.astype(np.int64)
+
+
+def _runs(found):
+    pad = np.zeros(len(found) + 2, np.int8)
+    pad[1:-1] = found
+    d = np.diff(pad)
+    return np.flatnonzero(d == 1), np.flatnonzero(d == -1)
+
+
+def _write_reads(path, codes, lut=np.frombuffer(b"ACTGN", np.uint8)):
+    with open(path, "wb") as f:
+        for s in lut[codes]:
+            f.write(b"@r\n" + s.tobytes() + b"\n+\n" + b"I" * len(s) + b"\n")
+
+
+def _lookup_cli_checks(lookup_cli, extract_cuda, MerylDB, genome, reads, asm,
+                       db_a, db_b, workdir):
+    """Every meryl-lookup mode through the CLI, each output against a
+    numpy brute force over the decoded DBs, each run launching the
+    extraction kernel.  -> ({mode: wall s}, {mode: launches}, ...)."""
+    k = 21
+    dec = {}
+    for name, path in (("a", db_a), ("b", db_b)):
+        hi, lo, c = MerylDB.open(path).load_all()
+        dec[name] = (lo, c.astype(np.int64))
+    f, r, _ = _fwd_rev(genome[None, :], k)
+    f, r = f[0], r[0]
+    npos = len(f)
+    va = _np_values(*dec["a"], f), _np_values(*dec["a"], r)
+    vb = _np_values(*dec["b"], f), _np_values(*dec["b"], r)
+    found_a = (va[0] > 0) | (va[1] > 0)
+    found_b = (vb[0] > 0) | (vb[1] > 0)
+    walls, launches = {}, {}
+
+    def call(name, args):
+        before = extract_cuda.LAUNCHES
+        t0 = time.perf_counter()
+        rc = lookup_cli.main(args)
+        walls[name] = time.perf_counter() - t0
+        launches[name] = extract_cuda.LAUNCHES - before
+        if launches[name] == 0:
+            raise AssertionError(f"meryl-lookup {name} never launched the "
+                                 f"extraction kernel")
+        return rc
+
+    def run(name, args):
+        out = os.path.join(workdir, f"lk_{name}.txt")
+        rc = call(name, args + ["-output", out])
+        if rc != 0:
+            raise AssertionError(f"meryl-lookup {name} exited {rc}")
+        return out
+
+    def expect(name, got, want):
+        if not (len(got) == len(want) and all(
+                np.array_equal(g, w) for g, w in zip(got, want))):
+            raise AssertionError(f"meryl-lookup {name}: output differs from "
+                                 f"brute force")
+
+    seq = ["-sequence", asm]
+    t = _table(run("existence genome", ["-existence", *seq, "-mers", db_a,
+                                        db_b]))
+    expect("existence genome", [t[:, 0], _ints(t[0, 1:])],
+           [np.array([b"chr"]),
+            [npos, len(dec["a"][0]), int(found_a.sum()), len(dec["b"][0]),
+             int(found_b.sum())]])
+    t = _table(run("bed", ["-bed", *seq, "-mers", db_a]))
+    ps = np.flatnonzero(found_a)
+    expect("bed", [_ints(t[:, 1]), _ints(t[:, 2])], [ps, ps + k])
+    t = _table(run("bed-runs", ["-bed-runs", *seq, "-mers", db_a]))
+    s, e = _runs(found_a)
+    expect("bed-runs", [_ints(t[:, 1]), _ints(t[:, 2])], [s, e + k])
+    t = _table(run("wig-depth", ["-wig-depth", *seq, "-mers", db_a]))
+    maxp = int(ps[-1]) + k if len(ps) else 0
+    depth = np.cumsum(np.bincount(ps, minlength=maxp + k + 1)
+                      - np.bincount(ps + k, minlength=maxp + k + 1))[:maxp]
+    dp = np.flatnonzero(depth > 0)
+    expect("wig-depth", [t[0], _ints(t[1:, 0]), _ints(t[1:, 1])],
+           [np.array([b"variableStep", b"chrom=chr"]), dp + 1,
+            depth[dp]])
+    t = _table(run("wig-count", ["-wig-count", *seq, "-mers", db_a]))
+    cnt = va[0] + va[1]            # odd k: no palindromes
+    cp = np.flatnonzero(cnt)
+    expect("wig-count", [_ints(t[1:, 0]), _ints(t[1:, 1])], [cp + 1, cnt[cp]])
+    t = _table(run("bed labels", ["-bed", *seq, "-mers", db_a, db_b,
+                                  "-labels", "A", "B"]))
+    both = np.stack([found_a, found_b], axis=1)
+    pp, dd = np.nonzero(both)
+    expect("bed labels", [_ints(t[:, 1]), t[:, 3]],
+           [pp, np.array([b"A", b"B"])[dd]])
+
+    # reads: -existence, then -include / -exclude of pairs against b -min 2
+    n = LOOKUP_READS
+    r1 = os.path.join(workdir, "lk_r1.fq")
+    r2 = os.path.join(workdir, "lk_r2.fq")
+    _write_reads(r1, reads[:n])
+    _write_reads(r2, reads[n:2 * n])
+    t = _table(run("existence reads", ["-existence", "-sequence", r1,
+                                       "-mers", db_a, db_b]))
+    rf, rr, rv = _fwd_rev(reads[:2 * n], k)
+
+    def hits(keys, counts, min_v=1):
+        v = np.maximum(_np_values(keys, counts, rf.ravel()),
+                       _np_values(keys, counts, rr.ravel()))
+        return ((v >= min_v) & rv.ravel()).reshape(rf.shape).sum(axis=1)
+    ha, hb = hits(*dec["a"]), hits(*dec["b"])
+    expect("existence reads", [_ints(t[:, c]) for c in (1, 2, 3, 4, 5)],
+           [rv[:n].sum(axis=1), np.full(n, len(dec["a"][0])), ha[:n],
+            np.full(n, len(dec["b"][0])), hb[:n]])
+    hb2 = hits(*dec["b"], min_v=2)
+    nf = hb2[:n] + hb2[n:]
+    lut = np.frombuffer(b"ACTGN", np.uint8)
+    for mode, keep in (("include", nf > 0), ("exclude", nf == 0)):
+        o1 = os.path.join(workdir, f"lk_{mode}_1.fq")
+        o2 = os.path.join(workdir, f"lk_{mode}_2.fq")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = call(mode, [f"-{mode}", "-sequence", r1, r2, "-mers", db_b,
+                             "-min", "2", "-output", o1, o2])
+        for path, rows in ((o1, reads[:n]), (o2, reads[n:2 * n])):
+            want = b"".join(
+                b"@r nKmers=%d\n%s\n+\n%s\n" % (
+                    nf[i], lut[rows[i]].tobytes(), b"I" * rows.shape[1])
+                for i in np.flatnonzero(keep))
+            with open(path, "rb") as f:
+                if rc != 0 or f.read() != want:
+                    raise AssertionError(f"meryl-lookup -{mode}: output "
+                                         f"differs from brute force")
+        if f"Including {int(keep.sum())} reads (or read pairs) out of {n}." \
+                not in err.getvalue():
+            raise AssertionError(f"-{mode}: {err.getvalue()!r}")
+    return walls, launches, r1, int(found_a.sum())
+
+
+def _position_lookup_check(position_lookup, extract_cuda, genome, reads, asm,
+                           ref, r1, workdir):
+    """position-lookup of the reads against `ref`, a DB counted from the
+    genome itself, -hpq / -mpb / -qpb against a numpy brute force."""
+    k, n = 21, LOOKUP_READS
+    out = {x: os.path.join(workdir, f"pl.{x}") for x in ("hpq", "mpb", "qpb")}
+    before = extract_cuda.LAUNCHES
+    t0 = time.perf_counter()
+    rc = position_lookup.main(["-m", ref, "-s", asm, "-hpq", out["hpq"],
+                               "-mpb", out["mpb"], "-qpb", out["qpb"], r1])
+    wall = time.perf_counter() - t0
+    launches = extract_cuda.LAUNCHES - before
+    if launches == 0:
+        raise AssertionError("position-lookup never launched the extraction "
+                             "kernel")
+    f, r, _ = _fwd_rev(genome[None, :], k)
+    g = np.minimum(f[0], r[0])
+    uniq, grank, occ = np.unique(g, return_inverse=True, return_counts=True)
+    rf, rr, rv = _fwd_rev(reads[:n], k)
+    q = np.minimum(rf, rr)
+    i = np.minimum(np.searchsorted(uniq, q), len(uniq) - 1)
+    hit = (uniq[i] == q) & rv
+    tcov = hit.sum(axis=1)
+    nper = np.where(hit, occ[i], 0).sum(axis=1)
+    per_rank = np.bincount(i[hit], minlength=len(uniq))
+    mer = per_rank[grank]
+    rows = np.nonzero(hit)[0]
+    pairs = np.unique(np.stack([rows, i[hit]], axis=1), axis=0)
+    qry = np.bincount(pairs[:, 1], minlength=len(uniq))[grank]
+    t = _table(out["hpq"])
+    want = [nper, tcov, np.full(n, reads.shape[1])]
+    if rc != 0 or not all(np.array_equal(_ints(t[:, c]), w)
+                          for c, w in enumerate(want)):
+        raise AssertionError("position-lookup -hpq differs from brute force")
+    for name, paint in (("mpb", mer), ("qpb", qry)):
+        t = _table(out[name])
+        p = np.flatnonzero(paint)
+        if not (np.array_equal(_ints(t[:, 0]), p)
+                and np.array_equal(_ints(t[:, 1]), paint[p])):
+            raise AssertionError(f"position-lookup -{name} differs from "
+                                 f"brute force")
+    return wall, launches, int(tcov.sum())
+
+
+def _lookup_breakdown(torch, lookup_cli, asm, db_a, workdir):
+    """Where `-bed` of the genome against DB a spends its time: the table
+    load, the per-position values (extraction, search, download), the
+    whole dump under torch.profiler (device time over its wall)."""
+    from torch.profiler import ProfilerActivity, profile
+    from meryl_tpu_torch import kmer as km
+    from meryl_tpu_torch.io.sequence import iter_sequences
+
+    out = os.path.join(workdir, "lk_breakdown.bed")
+    g = lookup_cli.parse_args(["-bed", "-sequence", asm, "-mers", db_a,
+                               "-output", out])
+    t0 = time.perf_counter()
+    lookup_cli.load_tables(g)
+    torch.cuda.synchronize()
+    load = time.perf_counter() - t0
+    _, seq, _ = next(iter_sequences(asm))
+    codes = km.CODE_LUT[np.frombuffer(seq, np.uint8)]
+    t0 = time.perf_counter()
+    lookup_cli._per_position_values(g.lookups, codes, 21, exists_only=True)
+    values = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with open(out, "w") as f:
+            lookup_cli.cmd_dump(g, f)
+        torch.cuda.synchronize()
+        dump = time.perf_counter() - t0
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    busy = (f"device busy {dev_ms:.3f} ms = {dev_ms / 10 / dump:.2f} % of "
+            f"the dump (idle {100 - dev_ms / 10 / dump:.2f} %)"
+            if dev_ms > 0 else "the profiler traced no device time")
+    print(f"lookup breakdown (-bed, genome against a): table load "
+          f"{load:.3f} s; per-position values (extraction, search, "
+          f"download) {values:.3f} s; cmd_dump {dump:.3f} s (traced), of "
+          f"it the values above and {dump - values:.3f} s of formatting "
+          f"and writing; {busy}")
+
+
+def _refused_slab(q, k, cfg, slab):
+    """Why the router refused a slab: the coarse-row counts of the first
+    slab (the top b1 bits of each key, numpy, not the router) against
+    capA, and the mean row of each eighth of the key space over the
+    planner's uniform mean."""
+    b1, capA = cfg["b1"], cfg["capA"]
+    first = q[:slab]
+    rows = np.bincount((first >> np.uint64(2 * k - b1)).astype(np.int64),
+                       minlength=1 << b1)
+    lam = len(first) / (1 << b1)
+    return dict(capA=capA, mean_row=lam, max_row=int(rows.max()),
+                rows_over_capA=int((rows > capA).sum()),
+                eighths_over_mean=[round(float(x) / lam, 3) for x in
+                                   rows.reshape(8, -1).mean(axis=1)])
+
+
+def _time_regimes(torch, lookup, table_fn, keys, counts, label):
+    """values_bulk forced through each regime in turn on REGIME_Q
+    queries (half hits), each held against the brute force; Mq/s of the
+    steady calls (a warm-up call first builds the regime's layout).  The
+    grid join runs again on uniform queries, the traffic its planner
+    sizes the coarse rows for, and must resolve them on the card."""
+    rng = np.random.default_rng(SEED + 14)
+    Q, k = REGIME_Q, 21
+    q = np.concatenate([keys[rng.integers(0, len(keys), Q // 2)],
+                        rng.integers(0, 1 << 42, Q - Q // 2, dtype=np.uint64)])
+    rng.shuffle(q)
+    qu = rng.integers(0, 1 << 42, Q, dtype=np.uint64)
+
+    def on_card(x):
+        return torch.from_numpy((x ^ np.uint64(1 << 63)).view(np.int64)).cuda()
+    key, key_u = on_card(q), on_card(qu)
+    want, want_u = _np_values(keys, counts, q), _np_values(keys, counts, qu)
+    valid = torch.ones(Q, dtype=torch.bool, device="cuda")
+    never, always = 1 << 62, 1
+    forced = {
+        "binary search": dict(JOIN_MIN_Q=never),
+        "routed join": dict(BACJ_MIN_N=never, JOIN_MIN_Q=always,
+                            JOIN_MIN_N=always),
+        "grid join": dict(BACJ_MIN_N=always, JOIN_MIN_Q=always),
+    }
+    t = table_fn({})
+    res = {}
+
+    def timed(name, fn, want=want):
+        """A first call (it builds the regime's layout), then three timed
+        calls, or one where the first took more than 2 s."""
+        lookup.reset_stats()
+        t0 = time.perf_counter()
+        got = fn()
+        first = time.perf_counter() - t0
+        if not np.array_equal(got.astype(np.int64), want):
+            raise AssertionError(f"{label} {name}: values differ from brute "
+                                 f"force")
+        walls = []
+        for _ in range(3 if first < 2 else 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        res[name] = dict(mqs=[Q / w / 1e6 for w in walls], first_s=first,
+                         stats={a: b for a, b in lookup.STATS.items() if b})
+        return res[name]["stats"]
+    for name, attrs in forced.items():
+        for a, v in attrs.items():
+            setattr(t, a, v)
+        timed(name, lambda: t.values_bulk(key, valid))
+        if name == "grid join":
+            uni = timed("grid join, uniform queries",
+                        lambda: t.values_bulk(key_u, valid), want_u)
+            if not uni.get("bacj_slabs") or uni.get("bacj_rejected_slabs"):
+                raise AssertionError(f"{label}: the router refused a slab of "
+                                     f"uniform queries")
+        for a in attrs:
+            delattr(t, a)
+    if not isinstance(t._bacj, dict) or t._bacj["segments"] != 1:
+        raise AssertionError(f"{label}: the grid join did not run whole")
+    if not res["grid join"]["stats"].get("bacj_slabs"):
+        # every slab fell back whole: the host search answered the row
+        res["grid join"]["note"] = (
+            "every slab refused by the router, so the host search answered: "
+            + json.dumps(_refused_slab(q, k, t._bacj["cfg"], t.BACJ_SLAB)))
+    timed("values_join", lambda: t.values_join(key, valid))
+    zeros = np.zeros(Q, np.uint64)
+    timed("values_host", lambda: t.values_host(zeros, q))
+    # the segmented grid: the table past a device budget forced low, the
+    # grid cap a third of the whole grid's bytes
+    cap = t._bacj["cfg"]["mem"] / 3 / 1e9
+    env = {"MERYL_TPU_LOOKUP_DEVICE_GB": "0.000001",
+           "MERYL_TPU_BACJ_CAP_GB": repr(cap)}
+    ts = table_fn(env)
+    ts.BACJ_MIN_N = ts.JOIN_MIN_Q = always
+    seg = timed("segmented grid", lambda: _with_env(
+        env, lambda: ts.values_bulk(key, valid)))
+    if ts._device_resident or ts._bacj["segments"] < 2 \
+            or not seg.get("bacj_slabs"):
+        raise AssertionError(f"{label}: the segmented grid did not run")
+    res["segmented grid"]["segments"] = ts._bacj["segments"]
+    del t, ts
+    for name, m in res.items():
+        print(f"lookup regime {label}, {name}: "
+              + ", ".join(f"{x:.2f}" for x in m["mqs"])
+              + f" Mq/s ({Q} queries, "
+              + ("uniform" if "uniform" in name else "half hits")
+              + f"; first call {m['first_s']:.3f} s incl. the layout build); "
+              "STATS " + json.dumps(m["stats"], sort_keys=True)
+              + (f"; {m['note']}" if "note" in m else ""))
+    return res
+
+
+def phase_lookup(torch, cli, lookup, lookup_cli, position_lookup,
+                 extract_cuda, MerylDB, genome, reads, db_a, db_b, workdir):
+    """meryl-lookup and position-lookup through their CLIs, each mode
+    against a numpy brute force; the table's device bytes; every bulk
+    regime timed on DB a and on a 2^16-entry table."""
+    asm = os.path.join(workdir, "asm.fa")
+    with open(asm, "wb") as f:
+        f.write(b">chr\n" + np.frombuffer(b"ACTG", np.uint8)[genome]
+                .tobytes() + b"\n")
+    # position-lookup's DB, counted before the launch window opens: the
+    # window holds meryl-lookup and position-lookup runs only
+    ref = os.path.join(workdir, "genome.meryl")
+    if cli.main(["count", "k=21", asm, "output", ref]) != 0:
+        raise AssertionError("counting the genome failed")
+    extract_cuda.LAUNCHES = 0
+    lookup.reset_stats()
+    walls, per_mode, r1, n_found = _lookup_cli_checks(
+        lookup_cli, extract_cuda, MerylDB, genome, reads, asm, db_a, db_b,
+        workdir)
+    pl_wall, pl_launches, pl_hits = _position_lookup_check(
+        position_lookup, extract_cuda, genome, reads, asm, ref, r1, workdir)
+    launches = extract_cuda.LAUNCHES
+    path_stats = {a: b for a, b in lookup.STATS.items() if b}
+    if launches != sum(per_mode.values()) + pl_launches:
+        raise AssertionError(f"extract LAUNCHES {launches} is not the sum of "
+                             f"the runs' own")
+    print("lookup CLI (each output equal to brute force; wall s, extract "
+          "launches): " + ", ".join(f"{m} {w:.3f} ({per_mode[m]})"
+                                    for m, w in walls.items())
+          + f"; position-lookup {pl_wall:.3f} ({pl_launches}; {pl_hits} read "
+          f"k-mers hit); genome k-mers found in a {n_found} of "
+          f"{GENOME - 20}; extract LAUNCHES {launches}; STATS "
+          + json.dumps(path_stats, sort_keys=True))
+
+    db = MerylDB.open(db_a)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    t = lookup.ExactLookup(db)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    table_bytes = torch.cuda.memory_allocated() - before
+    print(f"lookup table a: {t.n_kmers()} k-mers, device bytes "
+          f"{table_bytes} (memory_allocated delta), estimate_memory_bytes "
+          f"{t.estimate_memory_bytes()}, built in {build:.3f} s (DB read, "
+          f"offsets, upload)")
+    del t
+    hi, lo, c = db.load_all()
+
+    big = _time_regimes(torch, lookup, lambda env: _with_env(
+        env, lambda: lookup.ExactLookup(db)), lo, c.astype(np.int64),
+        f"N={len(lo)}")
+    pick = np.linspace(0, len(lo) - 1, SMALL_TABLE).astype(np.int64)
+    small_db = _ArraysDB(21, hi[pick], lo[pick], c[pick])
+    small = _time_regimes(torch, lookup, lambda env: _with_env(
+        env, lambda: lookup.ExactLookup(small_db)), lo[pick],
+        c[pick].astype(np.int64), f"N={SMALL_TABLE}")
+    # last: the profiler's tracing would slow the timings after it
+    _lookup_breakdown(torch, lookup_cli, asm, db_a, workdir)
+    return launches, dict(walls=walls, big=big, small=small,
+                          table_bytes=table_bytes)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -986,12 +1445,13 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from meryl_tpu_torch import cli, counter, native, optree
+    from meryl_tpu_torch import cli, counter, lookup, lookup_cli, native, optree
     from meryl_tpu_torch.db import MerylDB
     from meryl_tpu_torch.ops import accum, extract_cuda, rowsort
     from meryl_tpu_torch.ops import extract as ext
     from meryl_tpu_torch.ops import multiword as mw
     from meryl_tpu_torch.tools import ab_download, ab_extract, ab_passfloor
+    from meryl_tpu_torch.tools import position_lookup
 
     phase_env(torch)
     phase_build({"extract.cu": extract_cuda, "rowsort.cu": rowsort}, native)
@@ -1015,6 +1475,9 @@ def main():
         phase_configure(torch, cli, counter, fq, workdir)
         phase_acc_memory(torch, cli, counter, accum, fq, peak, workdir)
         phase_download_ab(ab_download, fq)
+        lookup_launches, _ = phase_lookup(
+            torch, cli, lookup, lookup_cli, position_lookup, extract_cuda,
+            MerylDB, genome, reads, db_a, db_b, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     probe = "scripts/probe_r4_pallas_sort.py"
@@ -1026,7 +1489,7 @@ def main():
          "launches": launches, "max_abs_err": max_err, "ms": x21["alone"],
          "plain_ms": x21["plain"], "bound_ms": x21["bound"],
          "bound_by": x21["by"], "library_ms": None, "call_ms": x21["call"],
-         "launches_batched": batched_ext,
+         "launches_batched": batched_ext, "launches_lookup": lookup_launches,
          "path": "count", "shape": f"{CHUNK} codes k=21 canonical"},
         {"name": "rowsort_bitonic_keys", "route": "cuda",
          "source": "meryl_tpu_torch/csrc/rowsort.cu",

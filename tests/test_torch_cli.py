@@ -148,11 +148,16 @@ def _imports(path, package):
                 yield f"{mod}.{a.name}"
 
 
+LAUNCHERS = ["meryl-torch", "meryl-lookup-torch", "position-lookup-torch",
+             "meryl-analyze-torch", "meryl-import-torch",
+             "meryl-simple-torch"]
+
+
 def _port_files():
     """(path, package) of every Python file of the port, chip_smoke.py
-    and bin/meryl-torch."""
-    files = [(os.path.join(ROOT, "chip_smoke.py"), ""),
-             (os.path.join(ROOT, "bin", "meryl-torch"), "")]
+    and the port's launchers under bin/."""
+    files = [(os.path.join(ROOT, "chip_smoke.py"), "")]
+    files += [(os.path.join(ROOT, "bin", n), "") for n in LAUNCHERS]
     for d, _, names in os.walk(PORT):
         pkg = os.path.relpath(d, ROOT).replace(os.sep, ".")
         files += [(os.path.join(d, n), pkg) for n in names
@@ -175,8 +180,21 @@ def test_port_imports_no_jax():
     # the port
     for mod in ("meryl_tpu_torch.kmer", "meryl_tpu_torch.native",
                 "meryl_tpu_torch.resources", "meryl_tpu_torch.io.bam",
-                "meryl_tpu_torch.io.cram", "meryl_tpu_torch.db"):
+                "meryl_tpu_torch.io.cram", "meryl_tpu_torch.db",
+                "meryl_tpu_torch.oracle", "meryl_tpu_torch.lookup",
+                "meryl_tpu_torch.ops.bacjoin"):
         assert mod in seen, mod
+    # each launcher imports its tool's main from the port
+    for mod in ("meryl_tpu_torch.cli.main", "meryl_tpu_torch.lookup_cli.main",
+                "meryl_tpu_torch.tools.position_lookup.main",
+                "meryl_tpu_torch.tools.analyze.main",
+                "meryl_tpu_torch.tools.import_tool.main",
+                "meryl_tpu_torch.tools.simple.main"):
+        assert mod in seen, mod
+    for rel in ("lookup.py", "lookup_cli.py", "ops/bacjoin.py",
+                "tools/position_lookup.py", "oracle.py", "tools/analyze.py",
+                "tools/import_tool.py", "tools/simple.py"):
+        assert os.path.join(PORT, rel) in {p for p, _ in files}, rel
 
 
 def test_cuda_device_without_cuda_fails_clearly(reads, monkeypatch,
@@ -643,6 +661,69 @@ def test_port_runs_with_meryl_tpu_and_jax_blocked(tmp_path):
     neither meryl_tpu nor jax can be imported; every output against an
     inline brute force."""
     r = subprocess.run([sys.executable, "-c", _CUT_LOOSE, str(tmp_path)],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("OK")
+
+
+_LOOKUP_NO_JAX = r"""
+import contextlib, io, os, random, sys
+sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["meryl_tpu"] = None    # nor of the reference package
+from meryl_tpu_torch.cli import main as meryl
+from meryl_tpu_torch.lookup_cli import main as lookup
+from meryl_tpu_torch.tools.position_lookup import main as position_lookup
+from meryl_tpu_torch.tools import import_tool, simple
+K = 15
+root = sys.argv[1]
+rng = random.Random(5)
+g = "".join(rng.choices("ACGT", k=5000))
+q = g[1000:1400] + "N" + "".join(rng.choices("ACGT", k=400))
+with open(f"{root}/g.fa", "w") as f:
+    f.write(f">g\n{g}\n")
+with open(f"{root}/q.fa", "w") as f:
+    f.write(f">q\n{q}\n")
+assert meryl(["count", f"k={K}", f"{root}/g.fa", "output", f"{root}/g.meryl",
+              "device=cpu"]) == 0
+CODE = {"A": 0, "C": 1, "T": 2, "G": 3}
+COMP = {"A": "T", "C": "G", "G": "C", "T": "A"}
+
+def canon(w):
+    rc = "".join(COMP[c] for c in reversed(w))
+    f = r = 0
+    for a, b in zip(w, rc):
+        f, r = f * 4 + CODE[a], r * 4 + CODE[b]
+    return min(f, r)
+
+have = {canon(g[i:i + K]) for i in range(len(g) - K + 1)}
+found = [i for i in range(len(q) - K + 1)
+         if "N" not in q[i:i + K] and canon(q[i:i + K]) in have]
+out = f"{root}/q.bed"
+assert lookup(["-bed", "-sequence", f"{root}/q.fa", "-mers",
+               f"{root}/g.meryl", "-output", out, "-device", "cpu"]) == 0
+assert open(out).read() == "".join(f"q\t{i}\t{i + K}\n" for i in found)
+assert position_lookup(["-m", f"{root}/g.meryl", "-s", f"{root}/g.fa",
+                        "-hpq", f"{root}/q.hpq", "-device", "cpu",
+                        f"{root}/q.fa"]) == 0
+assert open(f"{root}/q.hpq").read() == f"{len(found)}\t{len(found)}\t{len(q)}\tq\n"
+with open(f"{root}/k.txt", "w") as f:
+    f.write("ACGTACGTACGTACG 3\n")
+assert import_tool.main(["-k", str(K), "-kmers", f"{root}/k.txt", "-output",
+                         f"{root}/k.meryl"]) == 0
+assert simple.main(["-k", str(K), "-S", f"{root}/q.fa", "-D",
+                    f"{root}/q.dump"]) == 0
+assert not any(m.split(".")[0] in ("jax", "meryl_tpu") for m in sys.modules
+               if sys.modules[m] is not None)
+print("OK", len(found))
+"""
+
+
+def test_lookup_tools_run_with_meryl_tpu_and_jax_blocked(tmp_path):
+    """meryl-lookup -bed, position-lookup -hpq, import and simple in a
+    process where neither meryl_tpu nor jax can be imported; the lookup
+    outputs against an inline brute force."""
+    r = subprocess.run([sys.executable, "-c", _LOOKUP_NO_JAX, str(tmp_path)],
                        capture_output=True, text=True, timeout=300,
                        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
     assert r.returncode == 0, r.stderr

@@ -510,3 +510,124 @@ def test_plan_reports_the_cards_memory(cuda, tmp_path, monkeypatch):
     assert plan["hbm_gb"] == total / 1e9
     assert plan["device_chunk_hbm_bytes"] <= total * 0.5
     assert plan["devices"] == 1 and plan["sharded"] is False
+
+
+# ---- lookup on the card against the CPU path
+
+class _ArraysDB:
+    def __init__(self, k, hi, lo, counts, mode="canonical"):
+        self.k, self.mode = k, mode
+        self._t = (hi, lo, counts)
+
+    def load_all(self):
+        return self._t
+
+
+def _lookup_table(k, n, seed):
+    rng = np.random.default_rng(seed)
+    bits = 2 * k
+    lo = rng.integers(0, 1 << min(bits, 63), size=n, dtype=np.uint64)
+    hi = rng.integers(0, 1 << (bits - 64), size=n, dtype=np.uint64) \
+        if bits > 64 else np.zeros(n, np.uint64)
+    ones = (1 << bits) - 1                       # the all-ones k-mer
+    hi = np.append(hi, np.uint64(ones >> 64))
+    lo = np.append(lo, np.uint64(ones & ((1 << 64) - 1)))
+    order = np.lexsort((lo, hi))
+    hi, lo = hi[order], lo[order]
+    keep = np.ones(len(lo), bool)
+    keep[1:] = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])
+    hi, lo = hi[keep], lo[keep]
+    c = rng.integers(1, 1000, size=len(lo)).astype(np.uint32)
+    c[::31] = np.uint32(km.VALUE_MAX)
+    q = np.concatenate([np.arange(len(lo)), rng.integers(0, len(lo), 3000)])
+    qhi = np.concatenate([hi[q], rng.integers(0, 4, 2000, dtype=np.uint64)])
+    qlo = np.concatenate([lo[q], rng.integers(0, 1 << 40, 2000,
+                                              dtype=np.uint64)])
+    if bits <= 64:                     # queries are k-mers: 2k bits
+        qhi[:] = 0
+        qlo &= np.uint64((1 << bits) - 1)
+    return (hi, lo, c), mw.from_hilo(qhi, qlo, k), rng.random(len(qlo)) < .9
+
+
+@pytest.mark.parametrize("regime", ["bsearch", "join", "grid", "sortjoin"])
+@pytest.mark.parametrize("k", [16, 21, 32, 33, 64])
+def test_lookup_regimes_cuda_match_cpu(cuda, k, regime):
+    from meryl_tpu_torch import lookup
+
+    arrays, key, valid = _lookup_table(k, 20000, k)
+    out = []
+    for dev in ("cpu", cuda):
+        t = lookup.ExactLookup(_ArraysDB(k, *arrays), device=dev)
+        if regime == "bsearch":
+            t.JOIN_MIN_Q = 1 << 62
+        elif regime == "join":
+            t.BACJ_MIN_N, t.JOIN_MIN_Q, t.JOIN_MIN_N = 1 << 62, 1, 1
+            t.JOIN_SLAB, t.JOIN_R0, t._LDB_TARGET = 1 << 14, 4, 1 << 11
+        elif regime == "grid":
+            t.BACJ_MIN_N, t.JOIN_MIN_Q, t.BACJ_SLAB = 1, 1, 1 << 14
+        kt = torch.from_numpy(key).to(dev)
+        vt = torch.from_numpy(valid).to(dev)
+        if regime == "sortjoin":
+            out.append(t.values_join(kt, vt))
+        else:
+            out.append(t.values_bulk(kt, vt))
+            np.testing.assert_array_equal(t.values_bulk(kt, vt, True),
+                                          (out[-1] > 0).astype(np.uint32))
+    np.testing.assert_array_equal(out[0], out[1])
+    assert (out[1] == km.VALUE_MAX).any()
+
+
+@pytest.mark.parametrize("mode", ["-bed", "-bed-runs", "-wig-count",
+                                  "-wig-depth", "-existence"])
+def test_lookup_cli_cuda_matches_cpu(cuda, tmp_path, mode):
+    from meryl_tpu_torch import cli, lookup_cli
+
+    rng = np.random.default_rng(4)
+    g = "".join("ACGT"[c] for c in rng.integers(0, 4, 20000))
+    fa = str(tmp_path / "g.fa")
+    with open(fa, "w") as f:
+        f.write(f">g\n{g}\n")
+    q = str(tmp_path / "q.fa")
+    with open(q, "w") as f:
+        f.write(f">q\n{g[5000:15000]}NN{g[:100000 % 20000]}"
+                + "".join("ACGT"[c] for c in rng.integers(0, 4, 80000))
+                + "\n>s\nACGTAC\n")
+    db = str(tmp_path / "g.meryl")
+    assert cli.main(["count", "k=21", fa, "output", db, "device=cpu"]) == 0
+    outs = []
+    for dev in ("cpu", "cuda"):
+        out = str(tmp_path / f"{dev}.txt")
+        before = extract_cuda.LAUNCHES
+        assert lookup_cli.main([mode, "-sequence", q, "-mers", db,
+                                "-output", out, "-device", dev]) == 0
+        if dev == "cuda":
+            assert extract_cuda.LAUNCHES > before
+        with open(out, "rb") as f:
+            outs.append(f.read())
+    assert outs[0] == outs[1] and outs[0]
+
+
+def test_position_lookup_cuda_matches_cpu(cuda, tmp_path):
+    from meryl_tpu_torch import cli
+    from meryl_tpu_torch.tools import position_lookup
+
+    rng = np.random.default_rng(6)
+    g = "".join("ACGT"[c] for c in rng.integers(0, 4, 30000))
+    fa = str(tmp_path / "g.fa")
+    with open(fa, "w") as f:
+        f.write(f">g\n{g}\n")
+    reads = str(tmp_path / "r.fa")
+    with open(reads, "w") as f:
+        for i in range(200):
+            p = int(rng.integers(0, 29000))
+            f.write(f">r{i}\n{g[p:p + 150]}\n")
+    db = str(tmp_path / "g.meryl")
+    assert cli.main(["count", "k=21", fa, "output", db, "device=cpu"]) == 0
+    outs = []
+    for dev in ("cpu", "cuda"):
+        names = [str(tmp_path / f"{dev}.{x}") for x in ("hpq", "mpb", "qpb")]
+        assert position_lookup.main(["-m", db, "-s", fa, "-hpq", names[0],
+                                     "-mpb", names[1], "-qpb", names[2],
+                                     "-device", dev, reads]) == 0
+        outs.append([open(n, "rb").read() for n in names])
+    assert outs[0] == outs[1] and all(outs[0])
