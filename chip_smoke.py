@@ -70,11 +70,25 @@ Phases, each printing its lines; any failure exits non-zero:
      slab must resolve on the card (a half-hit row whose slabs the router
      all refused prints as the host search, with the refused slab's
      coarse-row counts against capA)
+ 15. meryl2 (run before 14): phase 6's and phase 8's
+     read sets counted through meryl2-torch with labels #1 and #2 (equal
+     to the v1 counts), then actions over the two labelled DBs --
+     union-sum (also equal to phase 8's v1 union-sum), intersect with
+     value=min label=xor, a `not select:input:@2`, a value: and a bases:
+     selector, a saturating value=mul#2^28 -- and a 7-input union-sum
+     over slices of DB a (the flat scan path), each output DB against a
+     numpy brute force; histogram and statistics; wall and M input
+     entries/s a command, the row sort's launches a row-packed command
+     (equal to its row-packed dispatches); then union-sum row-packed and
+     flat in turns with the time of each layer of the CLI's path, and
+     last one union-sum under torch.profiler in a process of its own
+     (device busy share, top device ops)
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs CUDA; imports no JAX.
 """
 
 import contextlib
+import filecmp
 import io
 import json
 import os
@@ -1438,7 +1452,362 @@ def phase_lookup(torch, cli, lookup, lookup_cli, position_lookup,
                           table_bytes=table_bytes)
 
 
+# ------------------------------------------------------------- meryl2
+
+MASK32 = 0xFFFFFFFF
+MUL_CONST = 1 << 28          # phase 15's saturating assign:value=mul#C
+M7_SLICE = 1 << 20           # k-mers of DB a behind the 7-input action
+
+
+def _decode_labelled(MerylDB, path):
+    """-> sorted k=21 k-mers, counts (int64) and labels of a DB."""
+    db = MerylDB.open(path)
+    runs = [db.load_bucket_labels(ff) for ff in range(64)]
+    hi = np.concatenate([r[0] for r in runs])
+    if (hi != 0).any():
+        raise AssertionError(f"{path}: k=21 k-mers with hi bits")
+    lab = np.concatenate([r[3] if r[3] is not None else
+                          np.zeros(len(r[2]), np.uint64) for r in runs])
+    return (np.concatenate([r[1] for r in runs]),
+            np.concatenate([r[2] for r in runs]).astype(np.int64),
+            lab.astype(np.int64))
+
+
+def _gc_count(kmers, k=21):
+    """G and C bases of each k-mer (codes 1 and 3: the low bit set)."""
+    gc = np.zeros(len(kmers), np.int64)
+    for j in range(k):
+        gc += ((kmers >> np.uint64(2 * j)) & np.uint64(1)).astype(np.int64)
+    return gc
+
+
+def _meryl2_brute(a, b):
+    """Expected (k-mers, values, labels) of phase 15's two-input actions,
+    from the two decoded inputs (labels 1 and 2), independent of both
+    packages."""
+    (ka, ca, _), (kb, cb, _) = a, b
+    u = np.union1d(ka, kb)
+    va = np.zeros(len(u), np.int64)
+    vb = np.zeros(len(u), np.int64)
+    va[np.searchsorted(u, ka)] = ca
+    vb[np.searchsorted(u, kb)] = cb
+    ina, inb = va > 0, vb > 0
+    lab_or = np.where(ina, 1, 0) | np.where(inb, 2, 0)
+    both, only_a = ina & inb, ina & ~inb
+    vmax = np.maximum(va, vb)
+    sel = (vmax >= 20) & (_gc_count(u) >= 11)
+    prod = np.where(ina, va, 1) * np.where(inb, vb, 1)
+    return {
+        # value sum (saturating), label OR
+        "union-sum": (u, np.minimum(va + vb, MASK32), lab_or),
+        # keys of both; value min, label 1 ^ 2
+        "intersect-min-xor": (u[both], np.minimum(va, vb)[both],
+                              np.full(int(both.sum()), 3)),
+        # not in input 2: a's own k-mers, value and label
+        "not-input-2": (u[only_a], va[only_a], np.ones(int(only_a.sum()))),
+        # union-max: value max, label of the first input holding it
+        "value-bases": (u[sel], vmax[sel],
+                        np.where(ina & (va >= vb), 1, 2)[sel]),
+        # saturating product of the constant and the present values
+        "mul-saturating": (u, np.minimum(MUL_CONST * prod, MASK32), lab_or),
+    }
+
+
+def _write_slices(MerylDB, a, workdir):
+    """7 labelled DBs from the first M7_SLICE k-mers of DB a: input i
+    holds the k-mers whose index is a multiple of i + 2, label 1 << i.
+    -> paths and the expected union-sum (k-mers, values, labels)."""
+    keys, counts = a[0][:M7_SLICE], a[1][:M7_SLICE]
+    j = np.arange(len(keys))
+    n_in = np.zeros(len(keys), np.int64)
+    lab = np.zeros(len(keys), np.int64)
+    paths = []
+    for i in range(7):
+        take = j % (i + 2) == 0
+        n_in += take
+        lab |= np.where(take, 1 << i, 0)
+        path = os.path.join(workdir, f"m2_slice{i}.meryl")
+        MerylDB.write(path, 21, np.zeros(int(take.sum()), np.uint64),
+                      keys[take], counts[take].astype(np.uint32),
+                      labels=np.full(int(take.sum()), 1 << i, np.uint64))
+        paths.append(path)
+    hit = n_in > 0
+    return paths, (keys[hit], np.minimum(n_in * counts, MASK32)[hit],
+                   lab[hit])
+
+
+def _check_labelled(MerylDB, name, path, want):
+    got = _decode_labelled(MerylDB, path)
+    for what, g, w in zip(("k-mers", "values", "labels"), got, want):
+        if len(g) != len(w) or not np.array_equal(g.astype(np.int64),
+                                                  np.asarray(w, np.int64)):
+            raise AssertionError(f"meryl2 {name}: {what} differ from brute "
+                                 f"force ({len(g)} vs {len(w)})")
+    return len(got[0])
+
+
+@contextlib.contextmanager
+def _layer_clock(torch, spots):
+    """Wrap each (owner, attribute, layer) of `spots` in a timer that
+    synchronizes the card before and after the call; yields the seconds
+    each layer spent, summed over its calls.  The originals come back on
+    exit."""
+    spent = dict.fromkeys((name for _, _, name in spots), 0.0)
+
+    def timed(fn, name):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                spent[name] += time.perf_counter() - t0
+        return call
+    saved = [(owner, attr, owner.__dict__[attr]) for owner, attr, _ in spots]
+    for owner, attr, name in spots:
+        setattr(owner, attr, timed(getattr(owner, attr), name))
+    try:
+        yield spent
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def _same_files(a, b):
+    """Two DB directories hold the same files, byte for byte."""
+    names = sorted(os.listdir(a))
+    return names == sorted(os.listdir(b)) and all(
+        filecmp.cmp(os.path.join(a, n), os.path.join(b, n), shallow=False)
+        for n in names)
+
+
+def _meryl2_layers(torch, v2cli, engine, rowsort, la, lb, checked, workdir):
+    """`union-sum` of the labelled DBs through the CLI, row-packed
+    (`Evaluator.ROWPACK_MIN` as shipped) and flat (ROWPACK_MIN 2^60) in
+    turns: row, flat, flat, row.  Each run times the layers of the path
+    the CLI runs (DB read, host packing, upload, sort stage, compute
+    stage, download, DB write; the rest is grouping and the CLI) and
+    its output DB must equal `checked`, the brute-force-checked
+    union-sum, byte for byte.  -> walls a layout."""
+    spots = [(v2cli.Evaluator, "_load_input", "DB read"),
+             (v2cli.Evaluator, "_pack", "pack"),
+             (v2cli.Evaluator, "_dispatch", "dispatch"),
+             (engine, "_action_sort_stage", "sort stage"),
+             (engine, "_action_compute_stage", "compute stage"),
+             (v2cli.Evaluator, "_download", "download"),
+             (v2cli.MerylDBWriter, "add_bucket", "DB write"),
+             (v2cli.MerylDBWriter, "finalize", "DB write")]
+    shipped = v2cli.Evaluator.ROWPACK_MIN
+    walls = {"row-packed": [], "flat": []}
+    for i, layout in enumerate(("row-packed", "flat", "flat", "row-packed")):
+        path = os.path.join(workdir, f"m2_layers{i}.meryl")
+        v2cli.reset_stats()
+        before = rowsort.LAUNCHES
+        v2cli.Evaluator.ROWPACK_MIN = shipped if layout == "row-packed" \
+            else 1 << 60
+        try:
+            with _layer_clock(torch, spots) as spent:
+                t0 = time.perf_counter()
+                rc = v2cli.main(["union-sum", la, lb,
+                                 f"output:database={path}"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            v2cli.Evaluator.ROWPACK_MIN = shipped
+        launches = rowsort.LAUNCHES - before
+        s = dict(v2cli.STATS)
+        if rc != 0 or not _same_files(path, checked):
+            raise AssertionError(f"meryl2 union-sum ({layout}): rc {rc} or "
+                                 f"a DB unlike the checked union-sum")
+        if (s["row_dispatches"] > 0) != (layout == "row-packed") or \
+                launches != s["row_dispatches"]:
+            raise AssertionError(f"meryl2 union-sum ({layout}): rowsort "
+                                 f"LAUNCHES {launches} for "
+                                 f"{s['row_dispatches']} row-packed of "
+                                 f"{s['dispatches']} dispatches")
+        shutil.rmtree(path)
+        walls[layout].append(wall)
+        spent["upload"] = spent.pop("dispatch") - spent["sort stage"] - \
+            spent["compute stage"]
+        spent["rest"] = wall - sum(spent.values())
+        print(f"meryl2 layers (union-sum {layout}, run {i + 1} of 4): "
+              f"{wall:.3f} s wall, {s['dispatches']} dispatches, rowsort "
+              f"LAUNCHES {launches}; " + ", ".join(
+                  f"{n} {1e3 * spent[n]:.1f} ms" for n in (
+                      "DB read", "pack", "upload", "sort stage",
+                      "compute stage", "download", "DB write", "rest")))
+    return walls
+
+
+def phase_meryl2(torch, v2cli, engine, extract_cuda, rowsort, MerylDB, fq_a,
+                 fq_b, db_a, db_b, db_u, workdir):
+    """meryl2-torch on the card: phase 6's and phase 8's read sets
+    counted with labels #1 and #2, then actions over the two labelled
+    ~10.5 M k-mer DBs and a 7-input action over slices of DB a, each
+    output DB decoded and held against a numpy brute force; histogram
+    and statistics.  The launch counts are read there: what follows
+    (union-sum in both layouts with its layers timed, and the trace in a
+    process of its own) checks its own.  -> the extraction and row sort
+    launches of those meryl2 commands."""
+    t_phase = time.perf_counter()
+    la, lb = (os.path.join(workdir, n) for n in ("m2_a.meryl", "m2_b.meryl"))
+    out = lambda name: os.path.join(workdir, f"m2_{name}.meryl")  # noqa: E731
+    extract_cuda.LAUNCHES = rowsort.LAUNCHES = 0
+    for fq, lab, path, ref in ((fq_a, 1, la, db_a), (fq_b, 2, lb, db_b)):
+        before = extract_cuda.LAUNCHES
+        t0 = time.perf_counter()
+        rc = v2cli.main(["-k", "21", "count", f"label=#{lab}", fq,
+                         f"output:database={path}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"meryl2 count label=#{lab} exited {rc}")
+        kmers, counts, labels = _decode_labelled(MerylDB, path)
+        hi, lo, c = MerylDB.open(ref).load_all()
+        if not (np.array_equal(kmers, lo) and np.array_equal(counts, c)
+                and (labels == lab).all()):
+            raise AssertionError(f"meryl2 count label=#{lab} differs from "
+                                 f"the brute-force-checked v1 count")
+        print(f"meryl2 count label=#{lab}: {len(kmers)} k-mers equal to the "
+              f"v1 count, every label {lab}, {wall:.3f} s wall, extract "
+              f"LAUNCHES {extract_cuda.LAUNCHES - before}")
+    count_launches = extract_cuda.LAUNCHES
+    if count_launches == 0:
+        raise AssertionError("meryl2 count never launched the extract kernel")
+    a, b = _decode_labelled(MerylDB, la), _decode_labelled(MerylDB, lb)
+    want = _meryl2_brute(a, b)
+    slices, want["7-input"] = _write_slices(MerylDB, a, workdir)
+    cmds = [
+        ("union-sum", ["union-sum", la, lb]),
+        ("intersect-min-xor", ["intersect", "assign:value=min",
+                               "assign:label=xor", la, lb]),
+        ("not-input-2", ["union-sum", "not", "select:input:@2", la, lb]),
+        ("value-bases", ["union-max", "select:value:>=20", "and",
+                         "select:bases:gc:>=11", la, lb]),
+        ("mul-saturating", ["union", f"assign:value=mul#{MUL_CONST}", la,
+                            lb]),
+        ("7-input", ["union-sum", *slices]),
+    ]
+    total_entries, total_wall = 0, 0.0
+    for name, argv in cmds:
+        v2cli.reset_stats()
+        before = rowsort.LAUNCHES
+        t0 = time.perf_counter()
+        rc = v2cli.main(argv + [f"output:database={out(name)}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rowsort.LAUNCHES - before
+        if rc != 0:
+            raise AssertionError(f"meryl2 {name} exited {rc}")
+        n = _check_labelled(MerylDB, name, out(name), want[name])
+        s = dict(v2cli.STATS)
+        if name == "7-input":
+            if s["row_dispatches"]:
+                raise AssertionError("the 7-input action was row-packed")
+        elif launches == 0 or launches != s["row_dispatches"]:
+            raise AssertionError(f"meryl2 {name}: rowsort LAUNCHES "
+                                 f"{launches} for {s['row_dispatches']} "
+                                 f"row-packed dispatches")
+        total_entries += s["entries"]
+        total_wall += wall
+        print(f"meryl2 {name}: {wall:.3f} s wall, {s['entries']} input "
+              f"entries, {s['entries'] / wall / 1e6:.3f} M entries/s, {n} "
+              f"output k-mers equal to brute force, {s['dispatches']} "
+              f"dispatches ({s['row_dispatches']} row-packed, mean R "
+              f"{s['rows'] / max(1, s['row_dispatches']):.1f}, mean L "
+              f"{s['row_slots'] / max(1, s['rows']):.1f}), rowsort LAUNCHES "
+              f"{launches}")
+    u = _decode_labelled(MerylDB, out("union-sum"))
+    hi, lo, c = MerylDB.open(db_u).load_all()
+    if not (np.array_equal(u[0], lo) and np.array_equal(u[1], c)):
+        raise AssertionError("meryl2 union-sum differs from phase 8's v1 "
+                             "union-sum")
+    for name, check in (("histogram", _check_histogram),
+                        ("statistics", _check_statistics)):
+        v2cli.reset_stats()
+        before = rowsort.LAUNCHES
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = v2cli.main([name, out("union-sum")])
+        wall = time.perf_counter() - t0
+        launches = rowsort.LAUNCHES - before
+        rows = v2cli.STATS["row_dispatches"]
+        if rc != 0 or not check(buf.getvalue(), want["union-sum"][1]):
+            raise AssertionError(f"meryl2 {name}: wrong report:\n"
+                                 f"{buf.getvalue()[:2000]}")
+        if launches == 0 or launches != rows:
+            raise AssertionError(f"meryl2 {name}: rowsort LAUNCHES "
+                                 f"{launches} for {rows} row-packed "
+                                 f"dispatches")
+        print(f"meryl2 {name} of union-sum: {wall:.3f} s wall, report equal "
+              f"to brute force, {v2cli.STATS['dispatches']} dispatches "
+              f"({rows} row-packed), rowsort LAUNCHES {launches}")
+    ext, srt = extract_cuda.LAUNCHES, rowsort.LAUNCHES
+    if ext == 0 or srt == 0:
+        raise AssertionError(f"meryl2 path: extract LAUNCHES {ext}, rowsort "
+                             f"LAUNCHES {srt}")
+    print(f"meryl2 path: {total_entries} entries in {total_wall:.3f} s, "
+          f"{total_entries / total_wall / 1e6:.3f} M entries/s; union-sum "
+          f"equal to v1's in k-mers and values; extract LAUNCHES {ext}, "
+          f"rowsort LAUNCHES {srt}")
+    walls = _meryl2_layers(torch, v2cli, engine, rowsort, la, lb,
+                           out("union-sum"), workdir)
+    print("meryl2 union-sum walls, row-packed / flat in the same process: "
+          + " / ".join(", ".join(f"{w:.3f}" for w in walls[x])
+                       for x in ("row-packed", "flat")) + " s")
+    sys.stdout.flush()
+    torch.cuda.empty_cache()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--meryl2-trace", la, lb, workdir], check=True,
+                   timeout=600)
+    print(f"meryl2 phase wall {time.perf_counter() - t_phase:.1f} s")
+    return ext, srt
+
+
+def meryl2_trace(la, lb, workdir):
+    """One `union-sum` of the labelled DBs under torch.profiler, in a
+    process of its own (`chip_smoke.py --meryl2-trace A B DIR`), since a
+    trace slows what runs after it in its process: an untraced run warms
+    the process, then the traced run gives device time over the wall
+    and the top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, ROOT)
+    from meryl_tpu_torch.v2 import cli as v2cli
+    path = os.path.join(workdir, "m2_traced.meryl")
+    argv = ["union-sum", la, lb, f"output:database={path}"]
+    t0 = time.perf_counter()
+    rc = v2cli.main(argv)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    shutil.rmtree(path, ignore_errors=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rc |= v2cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"traced meryl2 union-sum exited {rc}")
+    ka = prof.key_averages()
+    dev_ms = sum(e.self_device_time_total for e in ka) / 1e3
+    top = sorted(ka, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    busy = (f"device busy {dev_ms:.3f} ms = {dev_ms / 10 / wall:.2f} % of "
+            f"the wall (idle {100 - dev_ms / 10 / wall:.2f} %)"
+            if dev_ms > 0 else "the profiler traced no device time")
+    print(f"meryl2 trace (union-sum in a process of its own, untraced "
+          f"{warm:.3f} s, then traced): {wall:.3f} s wall; {busy}; "
+          "top device ops: " + "; ".join(
+              f"{e.key} {e.self_device_time_total / 1e3:.3f} ms "
+              f"({e.count} calls)" for e in top), flush=True)
+    return 0
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1452,6 +1821,8 @@ def main():
     from meryl_tpu_torch.ops import multiword as mw
     from meryl_tpu_torch.tools import ab_download, ab_extract, ab_passfloor
     from meryl_tpu_torch.tools import position_lookup
+    from meryl_tpu_torch.v2 import cli as v2cli
+    from meryl_tpu_torch.v2 import engine
 
     phase_env(torch)
     phase_build({"extract.cu": extract_cuda, "rowsort.cu": rowsort}, native)
@@ -1475,6 +1846,12 @@ def main():
         phase_configure(torch, cli, counter, fq, workdir)
         phase_acc_memory(torch, cli, counter, accum, fq, peak, workdir)
         phase_download_ab(ab_download, fq)
+        # phase 15 runs before 14, whose trace would slow it; its own
+        # trace runs in a process of its own
+        m2_ext, m2_sort = phase_meryl2(
+            torch, v2cli, engine, extract_cuda, rowsort, MerylDB, fq,
+            os.path.join(workdir, "reads_b.fq"), db_a, db_b,
+            os.path.join(workdir, "u.meryl"), workdir)
         lookup_launches, _ = phase_lookup(
             torch, cli, lookup, lookup_cli, position_lookup, extract_cuda,
             MerylDB, genome, reads, db_a, db_b, workdir)
@@ -1482,6 +1859,7 @@ def main():
         shutil.rmtree(workdir, ignore_errors=True)
     probe = "scripts/probe_r4_pallas_sort.py"
     x21 = ext_t[(21, "canonical")]
+    print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "extract", "route": "cuda",
          "source": "meryl_tpu_torch/csrc/extract.cu",
@@ -1490,6 +1868,7 @@ def main():
          "plain_ms": x21["plain"], "bound_ms": x21["bound"],
          "bound_by": x21["by"], "library_ms": None, "call_ms": x21["call"],
          "launches_batched": batched_ext, "launches_lookup": lookup_launches,
+         "launches_meryl2": m2_ext,
          "path": "count", "shape": f"{CHUNK} codes k=21 canonical"},
         {"name": "rowsort_bitonic_keys", "route": "cuda",
          "source": "meryl_tpu_torch/csrc/rowsort.cu",
@@ -1498,6 +1877,7 @@ def main():
          "ms": rows["ms"], "plain_ms": rows["plain"],
          "bound_ms": rows["bound"], "bound_by": rows["by"],
          "library_ms": rows["library"], "launches_batched": batched_sort,
+         "launches_meryl2": m2_sort,
          "path": "set operations",
          "shape": rows["shape"]},
         {"name": "rowsort_bitonic_i32", "route": "cuda",
@@ -1522,4 +1902,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--meryl2-trace"]:
+        sys.exit(meryl2_trace(*sys.argv[2:]))
     sys.exit(main())

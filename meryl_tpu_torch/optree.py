@@ -230,7 +230,7 @@ class BucketEvaluator:
             occ += b[1:] - b[:-1]
         return bounds, self._quantize_rowlen(int(occ.max()))
 
-    def _pack_rows(self, ins, m: int):
+    def _pack_rows(self, ins, m: int, extras=None):
         """Pack m sorted-unique (hi, lo, counts) inputs into (R, L)
         padded key / value / id arrays split at shared key boundaries:
         all instances of a key land in exactly one row, so rows sort
@@ -238,7 +238,12 @@ class BucketEvaluator:
 
         R starts where the reference's packer puts it; while the longest
         row exceeds rowsort.MAX_ROW (the kernel's bound), R doubles.
-        Splitting finer never changes the merged result."""
+        Splitting finer never changes the merged result.
+
+        extras: optional per-input list of extra payload arrays (meryl2's
+        label halves), each aligned with that input's counts; packed
+        beside the values, zero-padded, and returned as a fourth element
+        when given."""
         total = sum(len(c) for _, _, c in ins)
         R = max(2, min(1 << 11, total // self.ROW_TARGET))
         R = 1 << (R - 1).bit_length()
@@ -256,6 +261,8 @@ class BucketEvaluator:
             if nw == 2 else mw.sentinel_words(self.k)[0]
         values = np.zeros((R, L), np.int64)
         ids = np.full((R, L), m, np.int32)
+        packed_extra = [np.zeros((R, L), x.dtype) for x in extras[0]] \
+            if extras else []
         pos = np.zeros(R, np.int64)   # next free column of each row
         for i, (hi, lo, c) in enumerate(ins):
             b = bounds[i]
@@ -265,10 +272,16 @@ class BucketEvaluator:
             keys[row, col] = mw.from_hilo(hi, lo, self.k)
             values[row, col] = c
             ids[row, col] = i
+            for out, x in zip(packed_extra, extras[i] if extras else ()):
+                out[row, col] = x
             pos += per_row
+        if extras is not None:
+            return keys, values, ids, packed_extra
         return keys, values, ids
 
-    def _pack_flat(self, ins, m: int):
+    def _pack_flat(self, ins, m: int, extras=None):
+        """Concatenate m (hi, lo, counts) inputs into one padded flat
+        key / value / id row; extras as in _pack_rows."""
         total = sum(len(c) for _, _, c in ins)
         N = self._pad_to(total)
         nw = mw.num_words(self.k)
@@ -277,13 +290,19 @@ class BucketEvaluator:
             if nw == 2 else mw.sentinel_words(self.k)[0]
         values = np.zeros(N, np.int64)
         ids = np.full(N, m, np.int32)   # padding id beyond any real input
+        packed_extra = [np.zeros(N, x.dtype) for x in extras[0]] \
+            if extras else []
         pos = 0
         for i, (hi, lo, c) in enumerate(ins):
             n = len(c)
             keys[pos:pos + n] = mw.from_hilo(hi, lo, self.k)
             values[pos:pos + n] = c
             ids[pos:pos + n] = i
+            for out, x in zip(packed_extra, extras[i] if extras else ()):
+                out[pos:pos + n] = x
             pos += n
+        if extras is not None:
+            return keys, values, ids, packed_extra
         return keys, values, ids
 
     def eval_bucket(self, node: OpNode, ff: int):

@@ -150,7 +150,9 @@ def _imports(path, package):
 
 LAUNCHERS = ["meryl-torch", "meryl-lookup-torch", "position-lookup-torch",
              "meryl-analyze-torch", "meryl-import-torch",
-             "meryl-simple-torch"]
+             "meryl-simple-torch", "meryl2-torch", "meryl2-lookup-torch",
+             "meryl2-import-torch", "meryl2-analyze-torch",
+             "meryl2-simple-torch"]
 
 
 def _port_files():
@@ -182,18 +184,22 @@ def test_port_imports_no_jax():
                 "meryl_tpu_torch.resources", "meryl_tpu_torch.io.bam",
                 "meryl_tpu_torch.io.cram", "meryl_tpu_torch.db",
                 "meryl_tpu_torch.oracle", "meryl_tpu_torch.lookup",
-                "meryl_tpu_torch.ops.bacjoin"):
+                "meryl_tpu_torch.ops.bacjoin", "meryl_tpu_torch.v2.engine",
+                "meryl_tpu_torch.v2.parser",
+                "meryl_tpu_torch.io.sequence.open_maybe_compressed"):
         assert mod in seen, mod
     # each launcher imports its tool's main from the port
     for mod in ("meryl_tpu_torch.cli.main", "meryl_tpu_torch.lookup_cli.main",
                 "meryl_tpu_torch.tools.position_lookup.main",
                 "meryl_tpu_torch.tools.analyze.main",
                 "meryl_tpu_torch.tools.import_tool.main",
-                "meryl_tpu_torch.tools.simple.main"):
+                "meryl_tpu_torch.tools.simple.main",
+                "meryl_tpu_torch.v2.cli.main"):
         assert mod in seen, mod
     for rel in ("lookup.py", "lookup_cli.py", "ops/bacjoin.py",
                 "tools/position_lookup.py", "oracle.py", "tools/analyze.py",
-                "tools/import_tool.py", "tools/simple.py"):
+                "tools/import_tool.py", "tools/simple.py", "v2/engine.py",
+                "v2/parser.py", "v2/cli.py"):
         assert os.path.join(PORT, rel) in {p for p, _ in files}, rel
 
 
@@ -724,6 +730,61 @@ def test_lookup_tools_run_with_meryl_tpu_and_jax_blocked(tmp_path):
     process where neither meryl_tpu nor jax can be imported; the lookup
     outputs against an inline brute force."""
     r = subprocess.run([sys.executable, "-c", _LOOKUP_NO_JAX, str(tmp_path)],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("OK")
+
+
+_MERYL2_NO_JAX = r"""
+import contextlib, io, random, sys
+sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["meryl_tpu"] = None    # nor of the reference package
+from meryl_tpu_torch.v2.cli import main
+K = 13
+root = sys.argv[1]
+rng = random.Random(8)
+g = "".join(rng.choices("ACGT", k=3000))
+seqs = {"a": g[:2000], "b": g[1000:]}
+for n, s in seqs.items():
+    open(f"{root}/{n}.fa", "w").write(f">{n}\n{s}\n")
+    assert main(["-k", str(K), "count", f"label=#{1 if n == 'a' else 2}",
+                 f"{root}/{n}.fa", f"output:database={root}/{n}.meryl",
+                 "device=cpu"]) == 0
+buf = io.BytesIO()
+out = io.TextIOWrapper(buf)
+with contextlib.redirect_stdout(out):
+    assert main(["union-sum", "o:show", f"{root}/a.meryl", f"{root}/b.meryl",
+                 "device=cpu"]) == 0
+    out.flush()
+CODE = {"A": 0, "C": 1, "T": 2, "G": 3}
+COMP = {"A": "T", "C": "G", "G": "C", "T": "A"}
+want = {}
+for n, s in seqs.items():
+    for i in range(len(s) - K + 1):
+        w = s[i:i + K]
+        rc = "".join(COMP[c] for c in reversed(w))
+        key = min(w, rc, key=lambda x: [CODE[c] for c in x])
+        v, lab = want.get(key, (0, 0))
+        want[key] = (v + 1, lab | (1 if n == "a" else 2))
+got = {}
+for line in buf.getvalue().decode().splitlines():
+    mer, v, lab = line.split("\t")
+    got[mer] = (int(v), int(lab))
+assert got == want, (len(got), len(want))
+assert 3 in {lab for _, lab in got.values()}
+assert not any(m.split(".")[0] in ("jax", "meryl_tpu") for m in sys.modules
+               if sys.modules[m] is not None)
+print("OK", len(got))
+"""
+
+
+def test_meryl2_runs_with_meryl_tpu_and_jax_blocked(tmp_path):
+    """meryl2-torch: a labelled count of two sequences and their
+    union-sum o:show, in a process where neither meryl_tpu nor jax can
+    be imported; the printed (k-mer, value, label) lines against an
+    inline brute force."""
+    r = subprocess.run([sys.executable, "-c", _MERYL2_NO_JAX, str(tmp_path)],
                        capture_output=True, text=True, timeout=300,
                        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
     assert r.returncode == 0, r.stderr

@@ -631,3 +631,100 @@ def test_position_lookup_cuda_matches_cpu(cuda, tmp_path):
                                      "-device", dev, reads]) == 0
         outs.append([open(n, "rb").read() for n in names])
     assert outs[0] == outs[1] and all(outs[0])
+
+
+# ----------------------------------------------------------------- meryl2
+
+@pytest.fixture
+def meryl2_inputs(tmp_path):
+    """Two reads files sharing most of one genome, at k=16 with poly-G
+    (the all-ones k-mer) in both."""
+    rng = np.random.default_rng(9)
+    g = "".join("ACGT"[c] for c in rng.integers(0, 4, 60000))
+    paths = []
+    for i, (a, b) in enumerate(((0, 40000), (15000, 60000))):
+        fa = str(tmp_path / f"r{i}.fa")
+        with open(fa, "w") as f:
+            f.write(f">s\n{g[a:b]}\n>p\n{'G' * (30 + i)}\n")
+        paths.append(fa)
+    return paths
+
+
+MERYL2_CMDS = [
+    ["union-sum"],
+    ["intersect", "assign:value=min", "assign:label=xor"],
+    ["union", "assign:value=mul#268435456", "assign:label=rotate-left#33",
+     "select:bases:gc:>=7", "or", "not", "select:input:@2"],
+    ["union-max", "select:value:>=2", "and", "select:label:<3"],
+]
+
+
+@pytest.mark.parametrize("rowpack", [1, 1 << 60])
+@pytest.mark.parametrize("cmd", MERYL2_CMDS, ids=lambda c: c[0])
+def test_meryl2_cuda_matches_cpu(cuda, tmp_path, monkeypatch, meryl2_inputs,
+                                 cmd, rowpack):
+    """meryl2-torch on the card equals it on the CPU: labelled counts
+    (the extraction kernel) and an action over them, row-packed (the
+    bitonic row sort) or flat; DB files byte-equal."""
+    from meryl_tpu_torch.v2 import cli as v2
+
+    monkeypatch.setattr(v2.Evaluator, "ROWPACK_MIN", rowpack)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        dbs = []
+        for i, fa in enumerate(meryl2_inputs):
+            db = str(tmp_path / f"{dev}{i}.meryl")
+            before = extract_cuda.LAUNCHES
+            assert v2.main(["-k", "16", "count", f"label=#{i + 1}", fa,
+                            f"output:database={db}", f"device={dev}"]) == 0
+            assert (extract_cuda.LAUNCHES > before) == (dev == "cuda")
+            dbs.append(db)
+        out = str(tmp_path / f"{dev}_out.meryl")
+        before = rowsort.LAUNCHES
+        assert v2.main(cmd + dbs + [f"output:database={out}",
+                                    f"device={dev}"]) == 0
+        assert (rowsort.LAUNCHES > before) == (dev == "cuda" and rowpack == 1)
+        outs.append({n: open(os.path.join(out, n), "rb").read()
+                     for n in sorted(os.listdir(out))})
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("k", [16, 21, 33])
+@pytest.mark.parametrize("m", [2, 7])
+def test_meryl2_engine_cuda_matches_cpu(cuda, k, m):
+    """merge_action on the card (row-packed: the bitonic kernel; m = 7:
+    the flat segmented path) against the CPU, every output."""
+    from meryl_tpu_torch.optree import BucketEvaluator
+    from meryl_tpu_torch.v2 import engine
+
+    rng = np.random.default_rng(k * m)
+    bits = 2 * k
+    ins, halves = [], []
+    for _ in range(m):
+        lo = rng.integers(0, 1 << min(bits, 63), size=40000,
+                          dtype=np.uint64)
+        if bits % 32 == 0:
+            lo[0] = np.uint64((1 << bits) - 1)   # the all-ones k-mer
+        lo = np.unique(lo)
+        n = len(lo)
+        c = rng.integers(1, 1 << 32, size=n, dtype=np.uint64)
+        ins.append((np.zeros(n, np.uint64), lo, c.astype(np.uint32)))
+        lab = rng.integers(0, 1 << 62, size=n, dtype=np.int64)
+        halves.append([lab & 0xFFFFFFFF, lab >> 32])
+    ev = BucketEvaluator(k, "cpu")
+    pack = ev._pack_rows if m <= 6 else ev._pack_flat
+    keys, values, ids, (llo, lhi) = pack(ins, m, extras=halves)
+    sel = engine.Selector(((engine.SelectorTerm(
+        "bases", "ge", ("letters", "CG"), ("const", k // 2)),),))
+    res = []
+    for dev in ("cpu", "cuda"):
+        before = rowsort.LAUNCHES
+        got = engine.merge_action(
+            *(torch.from_numpy(x).to(dev) for x in (keys, values, llo, lhi,
+                                                     ids)),
+            m, k, engine.Assign("mul", 3, True), engine.Assign("heaviest"),
+            sel, 3, 0, 0)
+        assert (rowsort.LAUNCHES > before) == (dev == "cuda" and m <= 6)
+        res.append([x.cpu() for x in got])
+    for a, b in zip(*res):
+        assert torch.equal(a, b)

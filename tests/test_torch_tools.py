@@ -2,7 +2,8 @@
 tools/analyze, tools/import_tool, tools/simple) against the originals:
 the same code (docstrings aside, which name the reference's sources),
 byte-equal outputs on the same inputs; and every launcher the port adds
-under bin/ runs and writes what the reference writes."""
+under bin/ (the meryl2-*-torch ones too) runs and writes what the
+reference writes."""
 
 import ast
 import os
@@ -16,6 +17,7 @@ from meryl_tpu import oracle as ref_oracle
 from meryl_tpu.tools import analyze as ref_analyze
 from meryl_tpu.tools import import_tool as ref_import
 from meryl_tpu.tools import simple as ref_simple
+from meryl_tpu_torch.db import MerylDB
 from meryl_tpu_torch import oracle
 from meryl_tpu_torch.tools import analyze, import_tool, simple
 
@@ -187,3 +189,54 @@ def test_launchers_write_what_the_reference_writes(inputs, tmp_path):
         assert a == b and a, x
     assert _files(str(tmp_path / "simple_port.meryl")) == \
         _files(str(tmp_path / "simple_ref.meryl"))
+
+
+def test_meryl2_launchers_write_what_the_reference_writes(inputs, tmp_path):
+    """bin/meryl2-import-torch (labels, -labelwidth), meryl2-lookup-torch
+    -existence -device cpu on that label DB, meryl2-analyze-torch,
+    meryl2-simple-torch and meryl2-torch (a labelled count, device=cpu)
+    against the reference's functions on the same inputs."""
+    from meryl_tpu import lookup_cli as ref_lookup
+    from meryl_tpu.v2 import cli as ref_v2
+
+    d = inputs
+    kf = tmp_path / "k.txt"
+    kf.write_text("value=5\nlabel=0x3\nAAAAAAAAC\nAAAAAAAAG 7\n"
+                  "AAAAAAAGG 2 0x9\nAAAAAAAAC 1 0x4\n" +
+                  "".join(f"{_seq(np.random.default_rng(i), 9)} {i} {i}\n"
+                          for i in range(1, 40)))
+    q = tmp_path / "q.fa"
+    q.write_text(">q\nAAAAAAAACGGTACCA\n>r\n" + _seq(
+        np.random.default_rng(2), 300) + "\n")
+    for tag in ("ref", "port"):
+        pre = str(tmp_path / tag)
+        steps = [
+            ("meryl2-import-torch", ref_import.main,
+             ["-k", "9", "-kmers", str(kf), "-output", pre + ".meryl",
+              "-forward", "-labelwidth", "8"]),
+            ("meryl2-lookup-torch", ref_lookup.main,
+             ["-existence", "-sequence", str(q), "-mers", pre + ".meryl",
+              "-output", pre + ".exist"]),
+            ("meryl2-analyze-torch", ref_analyze.main,
+             ["-mers", pre + ".meryl", "-prefix", pre + "_an", "-gc"]),
+            ("meryl2-simple-torch", ref_simple.main,
+             ["-k", "11", "-S", str(d / "in.fa"), "-D", pre + ".dump"]),
+            ("meryl2-torch", ref_v2.main,
+             ["-k", "11", "count", "label=#3", str(d / "in.fa"),
+              f"output:database={pre}_c.meryl"]),
+        ]
+        for launcher, ref_main, args in steps:
+            if tag == "port":
+                extra = {"meryl2-lookup-torch": ["-device", "cpu"],
+                         "meryl2-torch": ["device=cpu"]}.get(launcher, [])
+                _launch(launcher, args + extra)
+            else:
+                assert ref_main(args) == 0, launcher
+    for x in ("{}.exist", "{}_an.GC.hist", "{}.dump"):
+        a = open(tmp_path / x.format("port"), "rb").read()
+        b = open(tmp_path / x.format("ref"), "rb").read()
+        assert a == b and a, x
+    for x in ("{}.meryl", "{}_c.meryl"):
+        a, b = (_files(str(tmp_path / x.format(t))) for t in ("port", "ref"))
+        assert a == b and len(a) > 60, x
+    assert MerylDB.open(str(tmp_path / "port.meryl")).meta["labelBits"] == 8
