@@ -83,6 +83,16 @@ Phases, each printing its lines; any failure exits non-zero:
      flat in turns with the time of each layer of the CLI's path, and
      last one union-sum under torch.profiler in a process of its own
      (device busy share, top device ops)
+ 16. multi-GPU counting on the one card (runs after 14):
+     `MERYL_TPU_SHARDED=1 meryl-torch count` of phase 6's FASTQ as a
+     1-rank NCCL group at full width (2^22 bases a step), its DB equal
+     to phase 6's, wall and Mbases/s beside phase 6's, the hatch stats,
+     the extraction kernel's launches and the peak device memory; the
+     same count with each layer of its step timed (route, the
+     all_to_all_single, the owner merge, finalize), which gives the
+     scaling model's t_local and t_merge; count_to_db_multihost in a
+     1-rank group (the same DB, no parts directory left); and
+     dryrun_multichip(1, "cuda") walking the three hatches
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs CUDA; imports no JAX.
 """
@@ -487,7 +497,7 @@ def phase_main_path(torch, cli, counter, accum, extract_cuda, MerylDB,
           f"max_memory_allocated {peak} B; geometry L0={plan['L0']} "
           f"B={plan['B']} M={plan['M']} c={plan['c']} La0={plan['La0']}")
     print("count path stats: " + json.dumps(stats, sort_keys=True))
-    return launches, genome, db, fq, reads, peak
+    return launches, genome, db, fq, reads, peak, wall
 
 
 COMP = {"A": "T", "C": "G", "G": "C", "T": "A"}
@@ -1547,12 +1557,11 @@ def _check_labelled(MerylDB, name, path, want):
 
 
 @contextlib.contextmanager
-def _layer_clock(torch, spots):
+def _call_clock(torch, spots):
     """Wrap each (owner, attribute, layer) of `spots` in a timer that
     synchronizes the card before and after the call; yields the seconds
-    each layer spent, summed over its calls.  The originals come back on
-    exit."""
-    spent = dict.fromkeys((name for _, _, name in spots), 0.0)
+    of each call, a list a layer.  The originals come back on exit."""
+    calls = {name: [] for _, _, name in spots}
 
     def timed(fn, name):
         def call(*args, **kwargs):
@@ -1562,16 +1571,26 @@ def _layer_clock(torch, spots):
                 return fn(*args, **kwargs)
             finally:
                 torch.cuda.synchronize()
-                spent[name] += time.perf_counter() - t0
+                calls[name].append(time.perf_counter() - t0)
         return call
     saved = [(owner, attr, owner.__dict__[attr]) for owner, attr, _ in spots]
     for owner, attr, name in spots:
         setattr(owner, attr, timed(getattr(owner, attr), name))
     try:
-        yield spent
+        yield calls
     finally:
         for owner, attr, fn in saved:
             setattr(owner, attr, fn)
+
+
+@contextlib.contextmanager
+def _layer_clock(torch, spots):
+    """_call_clock summed: yields the seconds each layer spent over its
+    calls (filled in on exit)."""
+    spent = {}
+    with _call_clock(torch, spots) as calls:
+        yield spent
+    spent.update({name: sum(v) for name, v in calls.items()})
 
 
 def _same_files(a, b):
@@ -1806,6 +1825,118 @@ def meryl2_trace(la, lb, workdir):
     return 0
 
 
+# ------------------------------------------------------------ sharded
+
+def _sharded_layers(torch, cli, accum, shard_count, fq, workdir):
+    """The sharded count of phase 16 again with each layer of its step
+    timed (the card is synchronized around every call).  -> ({layer:
+    [seconds a call]}, steps)."""
+    spots = [(accum, "route_chunk_packed", "route"),
+             (shard_count, "exchange_cells", "all_to_all"),
+             (shard_count, "routed_merge", "merge"),
+             (shard_count.ShardedCounter, "finalize_parts", "finalize")]
+    db = os.path.join(workdir, "sharded_layers.meryl")
+    with _call_clock(torch, spots) as calls:
+        rc = _with_env({"MERYL_TPU_SHARDED": "1"}, lambda: cli.main(
+            ["count", "k=21", fq, "output", db]))
+    if rc != 0:
+        raise AssertionError(f"timed sharded count exited {rc}")
+    shutil.rmtree(db, ignore_errors=True)
+    return calls, shard_count.LAST_SHARD_STATS["steps"]
+
+
+def phase_sharded(torch, cli, accum, extract_cuda, MerylDB, fq, db_a, bases,
+                  wall6, workdir):
+    """Multi-GPU counting on the one card: (a) `MERYL_TPU_SHARDED=1
+    meryl-torch count` of phase 6's FASTQ as a 1-rank NCCL group at full
+    width (2^22 bases a step, plan_shard_route's geometry), its DB equal
+    to phase 6's; then the same count with each layer of its step timed,
+    which gives scaling.py's t_local and t_merge; (b)
+    count_to_db_multihost in a 1-rank group: the same DB, no parts
+    directory left; (c) dryrun_multichip(1, "cuda"): the three hatches
+    through the CLI.  -> the extraction kernel's launches in (a)."""
+    import torch.distributed as dist
+
+    from meryl_tpu_torch.parallel import dryrun, multihost
+    from meryl_tpu_torch.parallel import shard_count
+    t_phase = time.perf_counter()
+    g = shard_count.plan_shard_route(CHUNK, 21, 1)
+    os.environ.pop("MERYL_TPU_SHARD_CHUNK", None)
+    db_s = os.path.join(workdir, "sharded.meryl")
+    torch.cuda.reset_peak_memory_stats()
+    extract_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rc = _with_env({"MERYL_TPU_SHARDED": "1"}, lambda: cli.main(
+        ["count", "k=21", fq, "output", db_s]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = extract_cuda.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(shard_count.LAST_SHARD_STATS)
+    if rc != 0:
+        raise AssertionError(f"sharded count exited {rc}")
+    if dist.is_initialized():
+        raise AssertionError("the 1-rank group outlived the count")
+    if not _same_db(MerylDB, db_s, db_a):
+        raise AssertionError("sharded DB differs from phase 6's DB")
+    if not (stats["steps"] >= 1 and launches >= stats["steps"]):
+        raise AssertionError(f"extract launches {launches} < sharded steps "
+                             f"{stats['steps']}")
+    print(f"sharded count (1-rank NCCL group): {bases} bases, "
+          f"{bases / wall / 1e6:.3f} Mbases/s ({wall:.3f} s wall incl. DB "
+          f"write) against phase 6's {bases / wall6 / 1e6:.3f} Mbases/s "
+          f"({wall6:.3f} s) in this run; DB equal to phase 6's (so to the "
+          f"brute force); LAST_SHARD_STATS {json.dumps(stats)}; extract "
+          f"LAUNCHES {launches}; max_memory_allocated {peak} B; geometry "
+          f"B={g['B']} rpo={g['rpo']} R0={g['R0']} L0={g['L0']} c={g['c']} "
+          f"Wc={g['Wc']}")
+
+    calls, steps = _sharded_layers(torch, cli, accum, shard_count, fq,
+                                   workdir)
+    ms = {name: [t * 1e3 for t in v] for name, v in calls.items()}
+    med = {name: float(np.median(v)) for name, v in ms.items()}
+    print(f"sharded layers (ms, card synchronized around each call, "
+          f"{steps} steps): " + "; ".join(
+              f"{name} {len(v)} calls, first {v[0]:.3f}, median "
+              f"{med[name]:.3f}, total {sum(v):.3f}"
+              for name, v in ms.items()))
+    # a step's route and merge at their medians (the first call of the
+    # all-to-all makes the NCCL communicator)
+    merges_a_step = len(ms["merge"]) / steps
+    t_local = med["route"] / CHUNK * 1e6
+    t_merge = med["merge"] * merges_a_step / (g["B"] * g["Wc"]) * 1e6
+    print(f"scaling calibration: t_local {t_local:.4f} ns/base (median "
+          f"route call / {CHUNK} bases), t_merge {t_merge:.4f} ns/slot "
+          f"(median merge call x {merges_a_step:.3f} merges a step / "
+          f"{g['B']} x {g['Wc']} slots a step); all_to_all_single "
+          f"{med['all_to_all']:.3f} ms a step at "
+          f"{g['B'] * g['Wc'] * 8 / med['all_to_all'] / 1e6:.2f} GB/s "
+          f"(1 rank: NCCL's copy to itself)")
+
+    db_m = os.path.join(workdir, "multihost.meryl")
+    t0 = time.perf_counter()
+    with shard_count.one_rank_group("cuda"):
+        multihost.count_to_db_multihost([fq], db_m, 21, device="cuda")
+        torch.cuda.synchronize()
+    wall_m = time.perf_counter() - t0
+    if dist.is_initialized():
+        raise AssertionError("the multihost group outlived the count")
+    if not _same_db(MerylDB, db_m, db_a):
+        raise AssertionError("multihost DB differs from phase 6's DB")
+    if os.path.exists(db_m + multihost.PART_DIR_SUFFIX):
+        raise AssertionError("multihost parts directory left behind")
+    print(f"multihost count (1-rank NCCL group, count_to_db_multihost): "
+          f"{bases / wall_m / 1e6:.3f} Mbases/s ({wall_m:.3f} s), DB equal "
+          f"to phase 6's, parts directory removed; LAST_SHARD_STATS "
+          f"{json.dumps(shard_count.LAST_SHARD_STATS)}")
+
+    dryrun.dryrun_multichip(1, "cuda")
+    if dist.is_initialized():
+        raise AssertionError("the dryrun's group outlived it")
+    print(f"sharded phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1833,7 +1964,7 @@ def main():
     i32_launches, floor_launches = phase_probe(torch, mw, rowsort)
     workdir = tempfile.mkdtemp(prefix="meryl_torch_smoke_")
     try:
-        launches, genome, db_a, fq, reads, peak = phase_main_path(
+        launches, genome, db_a, fq, reads, peak, wall6 = phase_main_path(
             torch, cli, counter, accum, extract_cuda, MerylDB, workdir)
         phase_hatches(counter, workdir)
         sort_launches, db_b = phase_setops(torch, cli, optree, rowsort,
@@ -1855,6 +1986,9 @@ def main():
         lookup_launches, _ = phase_lookup(
             torch, cli, lookup, lookup_cli, position_lookup, extract_cuda,
             MerylDB, genome, reads, db_a, db_b, workdir)
+        sharded_ext = phase_sharded(torch, cli, accum, extract_cuda, MerylDB,
+                                    fq, db_a, int(reads.size), wall6,
+                                    workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     probe = "scripts/probe_r4_pallas_sort.py"
@@ -1868,7 +2002,7 @@ def main():
          "plain_ms": x21["plain"], "bound_ms": x21["bound"],
          "bound_by": x21["by"], "library_ms": None, "call_ms": x21["call"],
          "launches_batched": batched_ext, "launches_lookup": lookup_launches,
-         "launches_meryl2": m2_ext,
+         "launches_meryl2": m2_ext, "launches_sharded": sharded_ext,
          "path": "count", "shape": f"{CHUNK} codes k=21 canonical"},
         {"name": "rowsort_bitonic_keys", "route": "cuda",
          "source": "meryl_tpu_torch/csrc/rowsort.cu",

@@ -1,10 +1,11 @@
-"""meryl_tpu_torch: the PyTorch / CUDA port of meryl_tpu's counting
-path, for one NVIDIA Hopper GPU.
+"""meryl_tpu_torch: the PyTorch / CUDA port of meryl_tpu, for NVIDIA
+Hopper GPUs.
 
-`meryl count` on one device (FASTA/FASTQ in, meryl DB out) runs as
-plain PyTorch around a hand-written CUDA kernel (k-mer extraction,
-csrc/extract.cu); the set operations sort their rows with another
-(csrc/rowsort.cu).  The JAX package meryl_tpu stays the reference.
+`meryl count` (FASTA/FASTQ in, meryl DB out) runs as plain PyTorch
+around a hand-written CUDA kernel (k-mer extraction, csrc/extract.cu);
+the set operations sort their rows with another (csrc/rowsort.cu).  On
+several GPUs a job of ranks, one process and one card each, counts over
+torch.distributed (NCCL; gloo on the CPU): parallel/.  The JAX package meryl_tpu stays the reference.
 This package keeps its own copies of the reference's JAX-free host
 modules (kmer, resources, io/, native, db, histogram, reports) and
 imports nothing of meryl_tpu and nothing of JAX: importing meryl_tpu
@@ -41,5 +42,8 @@ def __getattr__(name):
     if name in ("count_to_db", "count_to_arrays"):
         from . import counter
         return getattr(counter, name)
+    if name == "ShardedCounter":
+        from .parallel import shard_count
+        return shard_count.ShardedCounter
     raise AttributeError(
         f"module 'meryl_tpu_torch' has no attribute {name!r}")

@@ -23,11 +23,14 @@
     histogram text files (ploidy only)
   * special commands: dumpIndex DB, dumpFile BUCKETFILE
 
-Every word of meryl_tpu's CLI runs here.  -C prints the action tree
-and the counting plan and counts nothing; its plan has no multi-device
-scaling table.  The multi-device requests of meryl_tpu (environment
-MERYL_TPU_SHARDED=1, MERYL_TPU_COORD) fail in counter.py with the
-ROADMAP item that will port them.
+Every word of meryl_tpu's CLI runs here.  -C prints the action tree,
+the counting plan and the predicted multi-GPU scaling table
+(parallel/scaling.py) and counts nothing.  Several GPUs count as a job
+of ranks, one process and one card each:
+`python -m meryl_tpu_torch.parallel.launch --nprocs N -- count ...`
+(environment MERYL_TPU_COORD, counter.py routes it);
+MERYL_TPU_SHARDED=1 runs the sharded path in one process as a 1-rank
+group.
 """
 
 from __future__ import annotations
@@ -367,6 +370,7 @@ def _configure(b: CommandBuilder, device) -> None:
                                           device=device)
                 for kk, vv in plan.items():
                     sys.stderr.write(f"  {kk}: {vv}\n")
+                _describe_scaling()
         for inp in node.inputs:
             if isinstance(inp, OpNode):
                 describe_counting(inp)
@@ -374,6 +378,27 @@ def _configure(b: CommandBuilder, device) -> None:
     for root in b.roots:
         root.describe()
         describe_counting(root)
+
+
+def _describe_scaling() -> None:
+    """-C's predicted multi-GPU table (parallel/scaling.py)."""
+    from .counter import shard_default_chunk
+    from .parallel import scaling as sc
+    cal = sc.calibration()
+    sys.stderr.write(
+        f"  predicted scaling (H100; NVLink {cal['ici_gb_s']:g} GB/s a GPU "
+        f"within a node of {sc.GPUS_PER_NODE}, InfiniBand "
+        f"{cal['dcn_gb_s']:g} GB/s a GPU across nodes, published; "
+        f"t_local {cal['t_local_ns']:g} ns/base from {cal['t_local_src']}"
+        f", t_merge {cal['t_merge_ns']:g} ns/slot from "
+        f"{cal['t_merge_src']}):\n")
+    for row in sc.scaling_report(shard_default_chunk()):
+        sys.stderr.write(
+            f"    {row['devices']:4d} devices ({row['hosts']} nodes):"
+            f" eff {row['efficiency']:.2f}  local {row['t_local_ms']}ms"
+            f"  nvlink {row['t_ici_ms']}ms  ib {row['t_dcn_ms']}ms"
+            f"  merge {row['t_merge_ms']}ms"
+            f"  -> {row['bases_per_s'] / 1e9:.2f} Gbases/s\n")
 
 
 def run(b: CommandBuilder, device) -> int:

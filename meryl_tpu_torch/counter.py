@@ -1,5 +1,5 @@
 """Counting driver: sequence files -> sorted unique (kmer, count) arrays
--> DB (counterpart of meryl_tpu/counter.py, single device).
+-> DB (counterpart of meryl_tpu/counter.py).
 
 The main path is the device accumulator (DeviceAccCounter): per chunk
 the device extracts, routes and stages cells; every M chunks it merges
@@ -12,6 +12,11 @@ memory= is a real bound: when the plan (configure_counting) says the
 merged unique set may pass it, count_to_db counts in batches, each
 written as a partial DB with a resume manifest, and union-sums them
 (count_to_db_batched).
+
+Several GPUs: a job of ranks started by parallel/launch.py (one process
+and one device a rank, MERYL_TPU_COORD) counts through
+parallel/multihost.py; MERYL_TPU_SHARDED=1 in one process runs the same
+sharded step (parallel/shard_count.py) as a 1-rank group.
 
 The host modules (kmer, db, io.sequence, native) are the port's own
 copies of meryl_tpu's; nothing here imports JAX or meryl_tpu.
@@ -39,6 +44,13 @@ def default_chunk() -> int:
     """Bases per device chunk (env MERYL_TPU_CHUNK, read at call
     time)."""
     return int(_os.environ.get("MERYL_TPU_CHUNK", 1 << 22))
+
+
+def shard_default_chunk() -> int:
+    """Bases a rank feeds a step of the sharded count (env
+    MERYL_TPU_SHARD_CHUNK, read at call time); 2^22 matches the single
+    device's chunk."""
+    return int(_os.environ.get("MERYL_TPU_SHARD_CHUNK", 1 << 22))
 
 
 def _sort_rowlen(chunk_len: int) -> int | None:
@@ -857,23 +869,6 @@ def _use_device_acc(paths, k, device, count_suffix=None) -> int:
     return max(1, exp)
 
 
-def _refuse_multi_device():
-    """meryl_tpu counts on several devices when MERYL_TPU_SHARDED=1 or
-    a MERYL_TPU_COORD job of several processes asks for it; that is not
-    ported, and the port fails rather than count on one device
-    unasked."""
-    if _os.environ.get("MERYL_TPU_SHARDED") == "1":
-        asked = "MERYL_TPU_SHARDED"
-    elif ("MERYL_TPU_COORD" in _os.environ
-          and int(_os.environ.get("MERYL_TPU_NPROCS", "1")) > 1):
-        asked = "MERYL_TPU_COORD"
-    else:
-        return
-    raise ValueError(
-        f"{asked}={_os.environ[asked]} asks for multi-device counting, "
-        f"which is not yet ported in meryl_tpu_torch (ROADMAP.md item A10)")
-
-
 # wire volumes and sync counts of the most recent device-accumulator
 # run (same keys as meryl_tpu.counter.LAST_WIRE_STATS)
 LAST_WIRE_STATS: dict = {}
@@ -990,7 +985,73 @@ def _check_count_args(k: int, mode: str):
     if mode not in ("canonical", "forward", "reverse"):
         raise ValueError(f"mode must be canonical, forward or reverse, "
                          f"got {mode!r}")
-    _refuse_multi_device()
+
+
+def _use_sharded(count_suffix) -> bool:
+    """Whether one process counts on the sharded path, as a 1-rank group
+    (MERYL_TPU_SHARDED=1).  Unset or "auto" is off: where the reference
+    shards over every chip one process sees, the port reaches several
+    GPUs only as a job of ranks, one process each (parallel/launch.py).
+    A count-suffix is not part of the routed step and is never sharded."""
+    if count_suffix is not None:
+        return False
+    return _os.environ.get("MERYL_TPU_SHARDED", "auto") == "1"
+
+
+def _feed_sharded(paths, k: int, mode: str = "canonical",
+                  hpc: bool = False, chunk_len: int | None = None,
+                  progress=None, segment=None, device="cuda", **shard_kw):
+    """Feed the whole input through a ShardedCounter of this process's
+    1-rank group, one chunk a step.  Returns the counter, ready to
+    finalize (inside the same group)."""
+    from .parallel.shard_count import ShardedCounter
+
+    sc = ShardedCounter(k, chunk_len=chunk_len or shard_default_chunk(),
+                        mode=mode, device=device, **shard_kw)
+    if sc.n != 1:
+        raise ValueError(
+            f"a job of {sc.n} ranks counts through count_to_db (each rank "
+            f"reads its own segment), not count_to_arrays_sharded")
+    nbases = 0
+    for chunk in _prefetch_chunks(
+            SequenceChunker(paths, k, sc.chunk_len, hpc=hpc,
+                            segment=segment),
+            depth=4, transform=sc.prepack):
+        sc.add_codes(chunk)
+        nbases += chunk[4]
+        if progress:
+            progress(nbases)
+    return sc
+
+
+def count_to_arrays_sharded(paths, k: int, mode: str = "canonical",
+                            hpc: bool = False,
+                            chunk_len: int | None = None, progress=None,
+                            segment=None, device="cuda", **shard_kw):
+    """Sharded counting in one process (a 1-rank group made and destroyed
+    here unless the process already has one) to sorted (hi, lo,
+    counts)."""
+    from .parallel.shard_count import one_rank_group
+    with one_rank_group(device):
+        return _feed_sharded(paths, k, mode=mode, hpc=hpc,
+                             chunk_len=chunk_len, progress=progress,
+                             segment=segment, device=device,
+                             **shard_kw).finalize()
+
+
+def _use_multihost(count_suffix, segment) -> bool:
+    """Whether count_to_db runs the multi-process path: the launcher's
+    MERYL_TPU_COORD contract with more than one process, or a process
+    group of several ranks that the caller made.  count-suffix and an
+    explicit segment= count locally."""
+    if count_suffix is not None or segment is not None:
+        return False
+    from .parallel import multihost as mh
+    if mh.env_requested():
+        return int(_os.environ.get("MERYL_TPU_NPROCS", "1")) > 1
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized() and \
+        dist.get_world_size() > 1
 
 
 def count_to_arrays(paths, k: int, mode: str = "canonical",
@@ -1003,6 +1064,12 @@ def count_to_arrays(paths, k: int, mode: str = "canonical",
     with index % b == a - 1.  Returns sorted (hi, lo, counts)."""
     _check_count_args(k, mode)
     dev = resolve_device(device)
+    if _use_sharded(count_suffix):
+        # the sharded path has its own default chunk: pass the caller's
+        return count_to_arrays_sharded(paths, k, mode=mode, hpc=hpc,
+                                       chunk_len=chunk_len,
+                                       progress=progress, segment=segment,
+                                       device=dev)
     chunk_len = chunk_len or default_chunk()
     exp_uniques = _use_device_acc(paths, k, dev, count_suffix)
     if exp_uniques:
@@ -1034,13 +1101,30 @@ def count_to_db(paths, out_path: str, k: int, mode: str = "canonical",
                 progress=None, device="cuda",
                 count_suffix: str | None = None, segment=None,
                 memory_gb: float | None = None) -> MerylDB:
-    """Count to a meryl DB.  memory_gb is a real bound: when the plan
-    says the merged unique set may pass it, the count runs in batches
-    (count_to_db_batched); otherwise the plan's chunk size is used."""
+    """Count to a meryl DB.  In a job of several ranks (MERYL_TPU_COORD,
+    or a group the caller made) every rank counts its segment and rank 0
+    assembles the DB (parallel/multihost.py).  memory_gb is a real
+    bound: when the plan says the merged unique set may pass it, the
+    count runs out of core: in batches (count_to_db_batched), or on the
+    sharded path with its accumulator spilling to disk; otherwise the
+    plan's chunk size is used."""
+    if _use_multihost(count_suffix, segment):
+        from .parallel import multihost as mh
+        _check_count_args(k, mode)
+        if mh.env_requested():
+            mh.init_from_env(device)
+        return mh.count_to_db_multihost(paths, out_path, k, mode=mode,
+                                        hpc=hpc, chunk_len=chunk_len,
+                                        progress=progress, device=device)
     if memory_gb is not None and count_suffix is None:
         plan = configure_counting(paths, k, memory_gb, chunk_len,
                                   device=device)
         if plan["batches"] > 1:
+            if _use_sharded(count_suffix):
+                return _count_to_db_sharded_spill(
+                    paths, out_path, k, mode=mode, hpc=hpc,
+                    chunk_len=plan["chunk_len"], progress=progress,
+                    segment=segment, device=device)
             return count_to_db_batched(
                 paths, out_path, k, mode=mode, hpc=hpc,
                 chunk_len=plan["chunk_len"], memory_gb=memory_gb,
@@ -1052,6 +1136,34 @@ def count_to_db(paths, out_path: str, k: int, mode: str = "canonical",
                                      count_suffix=count_suffix,
                                      segment=segment)
     return MerylDB.write(out_path, k, hi, lo, counts, mode=mode, hpc=hpc)
+
+
+def _count_to_db_sharded_spill(paths, out_path: str, k: int, *, mode: str,
+                               hpc: bool, chunk_len: int, progress,
+                               segment, device) -> MerylDB:
+    """The sharded out-of-core count: accumulator spills go to DISK
+    (`<out>.spills`, removed at the end), finalize loads one owner's runs
+    at a time, and the DB is written bucket by bucket as owner ranges
+    stream out, so host peak is one owner's merged range."""
+    import shutil
+
+    from .db import stream_sorted_parts
+    from .parallel.shard_count import one_rank_group
+
+    _check_count_args(k, mode)
+    spill_dir = out_path + ".spills"
+    try:
+        with one_rank_group(device):
+            sc = _feed_sharded(paths, k, mode=mode, hpc=hpc,
+                               chunk_len=chunk_len, progress=progress,
+                               segment=segment, device=device,
+                               spill_dir=spill_dir)
+            return stream_sorted_parts(
+                out_path, k, ((hi, lo, c) for _, hi, lo, c
+                              in sc.iter_finalized_parts()),
+                mode=mode, hpc=hpc)
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
 
 
 # what the most recent count_to_db_batched did: chunks seen, batches,

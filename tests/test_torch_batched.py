@@ -443,19 +443,34 @@ def test_count_memory_one_batch_uses_plan_chunk(fasta, tmp_path,
 
 @pytest.mark.parametrize("env,value", [("MERYL_TPU_SHARDED", "1"),
                                        ("MERYL_TPU_COORD", "host:1234")])
-def test_multi_device_requests_are_refused(fasta, tmp_path, monkeypatch,
-                                           env, value):
-    """What meryl_tpu runs on several devices is not ported: the port
-    fails instead of counting on one device unasked."""
-    fa, _ = fasta
-    monkeypatch.setenv(env, value)
-    monkeypatch.setenv("MERYL_TPU_NPROCS", "2")
-    for fn, args in ((counter.count_to_arrays, ([fa], 11)),
-                     (counter.count_to_db, ([fa], str(tmp_path / "x"), 11)),
-                     (counter.count_to_db_batched,
-                      ([fa], str(tmp_path / "y"), 11))):
-        with pytest.raises(ValueError, match="ROADMAP.md item A10"):
-            fn(*args, device="cpu")
-    monkeypatch.setenv("MERYL_TPU_NPROCS", "1")
-    if env == "MERYL_TPU_COORD":  # one process is a local count
-        assert len(counter.count_to_arrays([fa], 11, device="cpu")[2])
+def test_multi_device_requests_count_like_one_device(fasta, tmp_path,
+                                                     monkeypatch, env, value):
+    """What meryl_tpu runs on several devices runs in the port and counts
+    what one device counts: MERYL_TPU_SHARDED=1 as a 1-rank group in this
+    process (count_to_arrays, count_to_db, and the sharded memory= branch
+    that spills to disk), a MERYL_TPU_COORD job of 2 gloo ranks through
+    count_to_db.  A job of one process is a local count."""
+    from tests import torch_dist
+    fa, seqs = fasta
+    want = counter.count_to_arrays([fa], 11, device="cpu")
+    monkeypatch.setenv("MERYL_TPU_SHARD_CHUNK", "1024")
+    if env == "MERYL_TPU_SHARDED":
+        monkeypatch.setenv(env, value)
+        got = counter.count_to_arrays([fa], 11, device="cpu")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        for mem in (None, 1e-6):
+            db = counter.count_to_db([fa], str(tmp_path / f"x{mem}"), 11,
+                                     memory_gb=mem, device="cpu")
+            _assert_oracle(db, seqs, 11)
+    else:
+        out = str(tmp_path / "job.meryl")
+        torch_dist.run_ranks(2, torch_dist.count_db_rank,
+                             ({"MERYL_TPU_CHUNK": "1024"}, [fa], out, 11),
+                             tmp_path)
+        _assert_oracle(MerylDB.open(out), seqs, 11)
+        monkeypatch.setenv(env, value)
+        monkeypatch.setenv("MERYL_TPU_NPROCS", "1")
+        got = counter.count_to_arrays([fa], 11, device="cpu")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)

@@ -186,6 +186,9 @@ def test_port_imports_no_jax():
                 "meryl_tpu_torch.oracle", "meryl_tpu_torch.lookup",
                 "meryl_tpu_torch.ops.bacjoin", "meryl_tpu_torch.v2.engine",
                 "meryl_tpu_torch.v2.parser",
+                "meryl_tpu_torch.parallel.shard_count",
+                "meryl_tpu_torch.parallel.multihost",
+                "meryl_tpu_torch.parallel.scaling",
                 "meryl_tpu_torch.io.sequence.open_maybe_compressed"):
         assert mod in seen, mod
     # each launcher imports its tool's main from the port
@@ -199,7 +202,9 @@ def test_port_imports_no_jax():
     for rel in ("lookup.py", "lookup_cli.py", "ops/bacjoin.py",
                 "tools/position_lookup.py", "oracle.py", "tools/analyze.py",
                 "tools/import_tool.py", "tools/simple.py", "v2/engine.py",
-                "v2/parser.py", "v2/cli.py"):
+                "v2/parser.py", "v2/cli.py", "parallel/shard_count.py",
+                "parallel/multihost.py", "parallel/launch.py",
+                "parallel/scaling.py", "parallel/dryrun.py"):
         assert os.path.join(PORT, rel) in {p for p, _ in files}, rel
 
 
@@ -216,21 +221,32 @@ def test_cuda_device_without_cuda_fails_clearly(reads, monkeypatch,
     assert not os.path.exists(str(root / "x.meryl"))
 
 
-@pytest.mark.parametrize("env,value,item", [
-    ("MERYL_TPU_SHARDED", "1", "A10"),
-    ("MERYL_TPU_COORD", "localhost:1234", "A10")])
-def test_unported_words_name_roadmap_item(reads, capsys, monkeypatch, env,
-                                          value, item):
-    """Every word of meryl_tpu's CLI runs in the port; what is left to
-    port is the multi-device counting that the environment asks for."""
+@pytest.mark.parametrize("env", ["MERYL_TPU_SHARDED", "MERYL_TPU_COORD"])
+def test_multi_device_words_count_like_one_device(reads, monkeypatch, env):
+    """meryl_tpu's multi-device requests run in the port: MERYL_TPU_SHARDED=1
+    counts as a 1-rank group in this process, and a MERYL_TPU_COORD job
+    of 2 gloo ranks (the launcher's contract) counts its segments; both
+    write the single-device DB."""
     root, fq = reads
-    monkeypatch.setenv(env, value)
-    monkeypatch.setenv("MERYL_TPU_NPROCS", "2")
-    assert cli.main(["count", "k=21", fq, "output",
-                     str(root / "y.meryl"), "device=cpu"]) == 1
-    err = capsys.readouterr().err
-    assert "not yet ported in meryl_tpu_torch" in err and item in err
-    assert not os.path.exists(str(root / "y.meryl"))
+    one = str(root / "one.meryl")
+    monkeypatch.setenv("MERYL_TPU_SHARDED", "0")
+    assert cli.main(["count", "k=21", fq, "output", one, "device=cpu"]) == 0
+    out = str(root / f"{env}.meryl")
+    if env == "MERYL_TPU_SHARDED":
+        monkeypatch.setenv(env, "1")
+        assert cli.main(["count", "k=21", fq, "output", out,
+                         "device=cpu"]) == 0
+        from meryl_tpu_torch.parallel import shard_count
+        assert shard_count.LAST_SHARD_STATS["steps"] >= 1
+    else:
+        r = subprocess.run(
+            [sys.executable, "-m", "meryl_tpu_torch.parallel.launch",
+             "--nprocs", "2", "--", "count", "k=21", fq, "output", out,
+             "device=cpu"], env=dict(os.environ, PYTHONPATH=ROOT),
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stderr
+    for a, b in zip(MerylDB.open(out).load_all(), MerylDB.open(one).load_all()):
+        assert np.array_equal(a, b)
 
 
 COUNT_WORD_CASES = [
@@ -320,7 +336,7 @@ def test_configure_only_matches_reference(reads, tmp_path, capsys,
                                           monkeypatch, words):
     """-C: the tree and the plan on stderr, exit 0, nothing counted; the
     host keys equal the reference's, the device keys are the port's
-    own, and no multi-device scaling table is printed."""
+    own, and both print a multi-device scaling table."""
     monkeypatch.delenv("MERYL_TPU_HBM_GB", raising=False)
     root, fq = reads
     out = str(tmp_path / "x.meryl")
@@ -334,7 +350,8 @@ def test_configure_only_matches_reference(reads, tmp_path, capsys,
     # the action tree reads alike
     assert got.err.splitlines()[:2] == ref_err.splitlines()[:2]
     plan, ref_plan = _plan_lines(got.err), _plan_lines(ref_err)
-    assert [k for k in ref_plan if not k[0].isdigit()][:13] == list(plan)
+    assert [k for k in ref_plan if not k[0].isdigit()][:13] == \
+        [k for k in plan if not k[0].isdigit()]
     for key in HOST_PLAN_KEYS:
         assert plan[key] == ref_plan[key], key
     from meryl_tpu_torch import counter
@@ -343,8 +360,14 @@ def test_configure_only_matches_reference(reads, tmp_path, capsys,
     assert int(plan["device_bytes_per_base"]) == \
         counter.device_bytes_per_base(21)
     assert plan["devices"] == "1" and plan["sharded"] == "False"
-    assert "predicted scaling" in ref_err
-    assert "scaling" not in got.err and "devices (" not in got.err
+    # both print the predicted scaling table over the same device counts
+    # (the port's from its H100 stage costs and NVLink / InfiniBand)
+    assert "predicted scaling" in ref_err and "predicted scaling (H100" \
+        in got.err
+
+    def rows(err):
+        return [ln.split()[0] for ln in err.splitlines() if "devices (" in ln]
+    assert rows(got.err) == rows(ref_err) == ["8", "64", "256"]
 
 
 @pytest.mark.parametrize("tail", [["output"], ["print"],

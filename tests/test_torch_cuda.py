@@ -728,3 +728,35 @@ def test_meryl2_engine_cuda_matches_cpu(cuda, k, m):
         res.append([x.cpu() for x in got])
     for a, b in zip(*res):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------- multi-GPU path
+
+@pytest.mark.parametrize("k", [21, 33])
+def test_sharded_count_nccl_matches_count(cuda, tmp_path, monkeypatch, k):
+    """MERYL_TPU_SHARDED=1 on the card: a 1-rank NCCL group, made and
+    destroyed by the counter, gives count_to_arrays' arrays; the
+    extraction kernel launches once a step and the hatches run."""
+    import torch.distributed as dist
+
+    from meryl_tpu_torch.parallel import shard_count
+    rng = np.random.default_rng(6)
+    fa = str(tmp_path / "in.fa")
+    with open(fa, "w") as f:
+        f.write(">polyA\n" + "A" * 3000 + "\n")
+        for i in range(300):
+            s = "".join("ACTG"[c] for c in rng.integers(0, 4, 400))
+            f.write(f">s{i}\n{s}\n")
+    monkeypatch.setenv("MERYL_TPU_SHARD_CHUNK", str(1 << 14))
+    monkeypatch.setenv("MERYL_TPU_SHARD_ACC_CAP", str(1 << 16))
+    monkeypatch.setenv("MERYL_TPU_SHARDED", "1")
+    before = extract_cuda.LAUNCHES
+    got = counter.count_to_arrays([fa], k, device="cuda")
+    stats = dict(shard_count.LAST_SHARD_STATS)
+    assert not dist.is_initialized()
+    assert extract_cuda.LAUNCHES - before >= stats["steps"] >= 1
+    assert stats["recount_chunks"] >= 1 and stats["spills"] >= 1
+    monkeypatch.setenv("MERYL_TPU_SHARDED", "0")
+    want = counter.count_to_arrays([fa], k, device="cuda")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
