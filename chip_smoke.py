@@ -84,15 +84,26 @@ Phases, each printing its lines; any failure exits non-zero:
      last one union-sum under torch.profiler in a process of its own
      (device busy share, top device ops)
  16. multi-GPU counting on the one card (runs after 14):
-     `MERYL_TPU_SHARDED=1 meryl-torch count` of phase 6's FASTQ as a
-     1-rank NCCL group at full width (2^22 bases a step), its DB equal
+     `MERYL_TPU_SHARDED=1 meryl-torch count` of phase 6's FASTQ in a
+     1-rank NCCL group (one_rank_group, the path of a launcher job's
+     rank) at full width (2^22 bases a step), its DB equal
      to phase 6's, wall and Mbases/s beside phase 6's, the hatch stats,
      the extraction kernel's launches and the peak device memory; the
      same count with each layer of its step timed (route, the
-     all_to_all_single, the owner merge, finalize), which gives the
+     all_to_all_single, the owner merge, settle), which gives the
      scaling model's t_local and t_merge; count_to_db_multihost in a
      1-rank group (the same DB, no parts directory left); and
-     dryrun_multichip(1, "cuda") walking the three hatches
+     dryrun_multichip(1, "cuda", job=True) walking the three hatches
+ 17. multi-GPU counting in one process (after 16): count_to_arrays_sharded
+     of phase 6's FASTQ over 4 members on cuda:0 (one thread each, the
+     machine having one card) at full width, equal to phase 6's DB, wall
+     and Mbases/s beside phase 6's, the extraction kernel's launches
+     (4 members x the steps), the peak device memory, whether peer
+     access is on and the hatch stats; the same count with the route,
+     the exchange and the owner merge timed a call; the CLI's
+     MERYL_TPU_SHARDED=1 count over every visible card (equal DB); and
+     the in-process dryrun_multichip(1, "cuda") and dryrun_devices over
+     the 4 members, each walking the three hatches
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs CUDA; imports no JAX.
 """
@@ -1834,9 +1845,10 @@ def _sharded_layers(torch, cli, accum, shard_count, fq, workdir):
     spots = [(accum, "route_chunk_packed", "route"),
              (shard_count, "exchange_cells", "all_to_all"),
              (shard_count, "routed_merge", "merge"),
-             (shard_count.ShardedCounter, "finalize_parts", "finalize")]
+             (shard_count.ShardedCounter, "settle", "settle")]
     db = os.path.join(workdir, "sharded_layers.meryl")
-    with _call_clock(torch, spots) as calls:
+    with _call_clock(torch, spots) as calls, \
+            shard_count.one_rank_group("cuda"):
         rc = _with_env({"MERYL_TPU_SHARDED": "1"}, lambda: cli.main(
             ["count", "k=21", fq, "output", db]))
     if rc != 0:
@@ -1848,13 +1860,15 @@ def _sharded_layers(torch, cli, accum, shard_count, fq, workdir):
 def phase_sharded(torch, cli, accum, extract_cuda, MerylDB, fq, db_a, bases,
                   wall6, workdir):
     """Multi-GPU counting on the one card: (a) `MERYL_TPU_SHARDED=1
-    meryl-torch count` of phase 6's FASTQ as a 1-rank NCCL group at full
-    width (2^22 bases a step, plan_shard_route's geometry), its DB equal
-    to phase 6's; then the same count with each layer of its step timed,
+    meryl-torch count` of phase 6's FASTQ inside a 1-rank NCCL group
+    (one_rank_group: the path of a launcher job's rank) at full width
+    (2^22 bases a step, plan_shard_route's geometry), its DB equal to
+    phase 6's; then the same count with each layer of its step timed,
     which gives scaling.py's t_local and t_merge; (b)
     count_to_db_multihost in a 1-rank group: the same DB, no parts
-    directory left; (c) dryrun_multichip(1, "cuda"): the three hatches
-    through the CLI.  -> the extraction kernel's launches in (a)."""
+    directory left; (c) dryrun_multichip(1, "cuda", job=True): the three
+    hatches through the CLI in a 1-rank NCCL group.  -> the extraction
+    kernel's launches in (a)."""
     import torch.distributed as dist
 
     from meryl_tpu_torch.parallel import dryrun, multihost
@@ -1866,9 +1880,12 @@ def phase_sharded(torch, cli, accum, extract_cuda, MerylDB, fq, db_a, bases,
     torch.cuda.reset_peak_memory_stats()
     extract_cuda.LAUNCHES = 0
     t0 = time.perf_counter()
-    rc = _with_env({"MERYL_TPU_SHARDED": "1"}, lambda: cli.main(
-        ["count", "k=21", fq, "output", db_s]))
-    torch.cuda.synchronize()
+    with shard_count.one_rank_group("cuda"):
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"1-rank group on {dist.get_backend()}")
+        rc = _with_env({"MERYL_TPU_SHARDED": "1"}, lambda: cli.main(
+            ["count", "k=21", fq, "output", db_s]))
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = extract_cuda.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
@@ -1930,10 +1947,111 @@ def phase_sharded(torch, cli, accum, extract_cuda, MerylDB, fq, db_a, bases,
           f"to phase 6's, parts directory removed; LAST_SHARD_STATS "
           f"{json.dumps(shard_count.LAST_SHARD_STATS)}")
 
-    dryrun.dryrun_multichip(1, "cuda")
+    dryrun.dryrun_multichip(1, "cuda", job=True)
     if dist.is_initialized():
         raise AssertionError("the dryrun's group outlived it")
     print(f"sharded phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+LOCAL_MEMBERS = 4   # phase 17's members on cuda:0
+
+
+def phase_local_sharded(torch, cli, counter, accum, extract_cuda, MerylDB,
+                        fq, db_a, bases, wall6, workdir):
+    """Multi-GPU counting in one process (phase 17): (a)
+    count_to_arrays_sharded over LOCAL_MEMBERS members on cuda:0 (a
+    LocalGroup, one thread a member; the machine has one card) of phase
+    6's FASTQ at full width (2^22 bases a member a step,
+    plan_shard_route at n = LOCAL_MEMBERS), equal to phase 6's DB; then
+    the same count with the route, the exchange and the owner merge
+    timed a call (the card synchronized around each call; the members
+    share cuda:0's stream, so a call's time holds what the other
+    members queued meanwhile); (b) the CLI's MERYL_TPU_SHARDED=1 count
+    over every visible card, equal to phase 6's DB; (c)
+    dryrun_multichip(1, "cuda") in one process and dryrun_devices over
+    LOCAL_MEMBERS members on cuda:0, each walking the three hatches.
+    -> the extraction kernel's launches in (a)."""
+    import torch.distributed as dist
+
+    from meryl_tpu_torch.parallel import dryrun, local_group, shard_count
+    t_phase = time.perf_counter()
+    n = LOCAL_MEMBERS
+    devices = ["cuda:0"] * n
+    g = shard_count.plan_shard_route(CHUNK, 21, n)
+    os.environ.pop("MERYL_TPU_SHARD_CHUNK", None)
+    want = MerylDB.open(db_a).load_all()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    extract_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = counter.count_to_arrays_sharded([fq], 21, devices=devices)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = extract_cuda.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(shard_count.LAST_SHARD_STATS)
+    if dist.is_initialized():
+        raise AssertionError("the in-process count made a process group")
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{n} members on cuda:0 differ from phase "
+                             f"6's DB")
+    if not (stats["steps"] >= 1 and launches >= n * stats["steps"]):
+        raise AssertionError(f"extract launches {launches} < {n} members "
+                             f"x {stats['steps']} steps")
+    cards = torch.cuda.device_count()
+    peer = "no two distinct cards in the group" if cards < 2 else \
+        local_group.LocalGroup(range(cards)).peer_access()
+    print(f"local sharded count ({n} members on cuda:0, one thread each): "
+          f"{bases} bases, {bases / wall / 1e6:.3f} Mbases/s ({wall:.3f} s "
+          f"wall, to arrays) against phase 6's {bases / wall6 / 1e6:.3f} "
+          f"Mbases/s ({wall6:.3f} s, CLI incl. DB write) in this run; "
+          f"equal to phase 6's DB (so to the brute force); LAST_SHARD_STATS "
+          f"{json.dumps(stats)}; extract LAUNCHES {launches} (= {n} members "
+          f"x {stats['steps']} steps + {launches - n * stats['steps']} "
+          f"recount launches); max_memory_allocated {peak} B; peer access "
+          f"{peer} ({cards} card(s)); geometry B={g['B']} rpo={g['rpo']} "
+          f"R0={g['R0']} L0={g['L0']} c={g['c']} Wc={g['Wc']}")
+
+    spots = [(accum, "route_chunk_packed", "route"),
+             (shard_count, "exchange_cells", "exchange"),
+             (shard_count, "routed_merge", "merge")]
+    with _call_clock(torch, spots) as calls:
+        timed = counter.count_to_arrays_sharded([fq], 21, devices=devices)
+    if not all(np.array_equal(a, b) for a, b in zip(timed, want)):
+        raise AssertionError("timed local sharded count differs")
+    ms = {name: [t * 1e3 for t in v] for name, v in calls.items()}
+    print(f"local sharded layers (ms a call, card synchronized around "
+          f"each, {n} members, {shard_count.LAST_SHARD_STATS['steps']} "
+          f"steps): " + "; ".join(
+              f"{name} {len(v)} calls, median {float(np.median(v)):.3f}, "
+              f"max {max(v):.3f}, total {sum(v):.3f}"
+              for name, v in ms.items()))
+
+    db_s = os.path.join(workdir, "local_sharded.meryl")
+    t0 = time.perf_counter()
+    rc = _with_env({"MERYL_TPU_SHARDED": "1"}, lambda: cli.main(
+        ["count", "k=21", fq, "output", db_s]))
+    torch.cuda.synchronize()
+    wall_cli = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"MERYL_TPU_SHARDED=1 count exited {rc}")
+    if dist.is_initialized():
+        raise AssertionError("the CLI's in-process count made a group")
+    if not _same_db(MerylDB, db_s, db_a):
+        raise AssertionError("in-process sharded CLI DB differs from "
+                             "phase 6's DB")
+    shutil.rmtree(db_s, ignore_errors=True)
+    print(f"CLI MERYL_TPU_SHARDED=1 count over every visible card "
+          f"({cards}): {bases / wall_cli / 1e6:.3f} Mbases/s "
+          f"({wall_cli:.3f} s incl. DB write), DB equal to phase 6's; "
+          f"LAST_SHARD_STATS {json.dumps(shard_count.LAST_SHARD_STATS)}")
+
+    dryrun.dryrun_multichip(1, "cuda")
+    dryrun.dryrun_devices(devices)
+    if dist.is_initialized():
+        raise AssertionError("an in-process dryrun made a group")
+    print(f"local sharded phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1989,6 +2107,9 @@ def main():
         sharded_ext = phase_sharded(torch, cli, accum, extract_cuda, MerylDB,
                                     fq, db_a, int(reads.size), wall6,
                                     workdir)
+        local_ext = phase_local_sharded(
+            torch, cli, counter, accum, extract_cuda, MerylDB, fq, db_a,
+            int(reads.size), wall6, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     probe = "scripts/probe_r4_pallas_sort.py"
@@ -2003,6 +2124,7 @@ def main():
          "bound_by": x21["by"], "library_ms": None, "call_ms": x21["call"],
          "launches_batched": batched_ext, "launches_lookup": lookup_launches,
          "launches_meryl2": m2_ext, "launches_sharded": sharded_ext,
+         "launches_local_sharded": local_ext,
          "path": "count", "shape": f"{CHUNK} codes k=21 canonical"},
         {"name": "rowsort_bitonic_keys", "route": "cuda",
          "source": "meryl_tpu_torch/csrc/rowsort.cu",

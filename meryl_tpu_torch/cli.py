@@ -25,12 +25,14 @@
 
 Every word of meryl_tpu's CLI runs here.  -C prints the action tree,
 the counting plan and the predicted multi-GPU scaling table
-(parallel/scaling.py) and counts nothing.  Several GPUs count as a job
-of ranks, one process and one card each:
+(parallel/scaling.py) and counts nothing.  On a host with several
+GPUs, plain `count` uses every visible card from this one process (the
+sharded path, one thread a card; MERYL_TPU_SHARDED=0 turns it off, =1
+forces it on one card, and with device=cpu MERYL_TPU_LOCAL_DEVICES=n
+runs n members on the CPU).  Several processes count as a job of ranks,
+one process and one card each:
 `python -m meryl_tpu_torch.parallel.launch --nprocs N -- count ...`
-(environment MERYL_TPU_COORD, counter.py routes it);
-MERYL_TPU_SHARDED=1 runs the sharded path in one process as a 1-rank
-group.
+(environment MERYL_TPU_COORD, counter.py routes it).
 """
 
 from __future__ import annotations

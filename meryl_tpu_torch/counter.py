@@ -13,10 +13,12 @@ merged unique set may pass it, count_to_db counts in batches, each
 written as a partial DB with a resume manifest, and union-sums them
 (count_to_db_batched).
 
-Several GPUs: a job of ranks started by parallel/launch.py (one process
-and one device a rank, MERYL_TPU_COORD) counts through
-parallel/multihost.py; MERYL_TPU_SHARDED=1 in one process runs the same
-sharded step (parallel/shard_count.py) as a 1-rank group.
+Several GPUs: one process counts over every card it sees on the
+sharded path (parallel/shard_count.py, one thread a card: on by default
+on a host with several cards, MERYL_TPU_SHARDED=1 forces it,
+MERYL_TPU_LOCAL_DEVICES=n members on the CPU); a job of ranks started by
+parallel/launch.py (one process and one device a rank,
+MERYL_TPU_COORD) runs the same step through parallel/multihost.py.
 
 The host modules (kmer, db, io.sequence, native) are the port's own
 copies of meryl_tpu's; nothing here imports JAX or meryl_tpu.
@@ -24,6 +26,8 @@ copies of meryl_tpu's; nothing here imports JAX or meryl_tpu.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import os as _os
 import time as _time
 
@@ -878,18 +882,20 @@ def _prefetch_chunks(chunker, depth: int = 2, transform=None,
                      stats: dict | None = None):
     """Iterate a SequenceChunker through a small queue fed by a reader
     thread: the file scan and the per-chunk `transform` (the 2-bit
-    pack) overlap the device work.  Reader errors re-raise here."""
+    pack) overlap the device work.  Reader errors re-raise here.  When
+    the consumer stops early (an error, close()), the reader ends too."""
     import queue
     import threading
 
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     DONE = object()
+    stop = threading.Event()
 
     def _reader():
         busy = 0.0
         try:
             it = iter(chunker)
-            while True:
+            while not stop.is_set():
                 t0 = _time.perf_counter()
                 try:
                     c = next(it)
@@ -907,13 +913,22 @@ def _prefetch_chunks(chunker, depth: int = 2, transform=None,
 
     t = threading.Thread(target=_reader, daemon=True)
     t.start()
-    while True:
-        item = q.get()
-        if item is DONE:
-            return
-        if isinstance(item, BaseException):
-            raise item
-        yield item
+    try:
+        while True:
+            item = q.get()
+            if item is DONE:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        # a reader blocked on the full queue is freed by draining it
+        stop.set()
+        while t.is_alive():
+            try:
+                q.get(timeout=0.05)
+            except queue.Empty:
+                pass
 
 
 def count_to_arrays_device_acc(paths, k: int, mode: str, hpc: bool,
@@ -987,56 +1002,179 @@ def _check_count_args(k: int, mode: str):
                          f"got {mode!r}")
 
 
-def _use_sharded(count_suffix) -> bool:
-    """Whether one process counts on the sharded path, as a 1-rank group
-    (MERYL_TPU_SHARDED=1).  Unset or "auto" is off: where the reference
-    shards over every chip one process sees, the port reaches several
-    GPUs only as a job of ranks, one process each (parallel/launch.py).
-    A count-suffix is not part of the routed step and is never sharded."""
+def _in_job() -> bool:
+    """Whether this process is a rank of a launcher job
+    (MERYL_TPU_COORD) or already has a torch.distributed group."""
+    from .parallel import multihost as mh
+    if mh.env_requested():
+        return True
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def _use_sharded(count_suffix, device) -> bool:
+    """Whether counting runs the sharded path (meryl_tpu/counter.py
+    _use_sharded): MERYL_TPU_SHARDED=1 forces it, 0 turns it off, and
+    auto (the default) is on when device is cuda, this process is in no
+    launcher job and it sees more than one card.  A count-suffix is not
+    part of the routed step and is never sharded."""
     if count_suffix is not None:
         return False
-    return _os.environ.get("MERYL_TPU_SHARDED", "auto") == "1"
+    env = _os.environ.get("MERYL_TPU_SHARDED", "auto")
+    if env == "0":
+        return False
+    if env == "1":
+        return True
+    return torch.device(device).type == "cuda" and not _in_job() and \
+        torch.cuda.is_available() and torch.cuda.device_count() > 1
 
 
-def _feed_sharded(paths, k: int, mode: str = "canonical",
-                  hpc: bool = False, chunk_len: int | None = None,
-                  progress=None, segment=None, device="cuda", **shard_kw):
-    """Feed the whole input through a ShardedCounter of this process's
-    1-rank group, one chunk a step.  Returns the counter, ready to
-    finalize (inside the same group)."""
-    from .parallel.shard_count import ShardedCounter
+def shard_devices(device) -> list:
+    """The devices of this process's sharded count: on cuda every
+    visible card once; on cpu MERYL_TPU_LOCAL_DEVICES members (the
+    reference's virtual CPU devices a process, default 1)."""
+    dev = resolve_device(device)
+    env = _os.environ.get("MERYL_TPU_LOCAL_DEVICES")
+    if dev.type == "cuda":
+        if env:
+            raise ValueError(
+                "MERYL_TPU_LOCAL_DEVICES sets virtual CPU devices "
+                "(device=cpu); with device=cuda the sharded count takes "
+                "every visible card")
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev] * int(env or 1)
 
-    sc = ShardedCounter(k, chunk_len=chunk_len or shard_default_chunk(),
-                        mode=mode, device=device, **shard_kw)
-    if sc.n != 1:
-        raise ValueError(
-            f"a job of {sc.n} ranks counts through count_to_db (each rank "
-            f"reads its own segment), not count_to_arrays_sharded")
-    nbases = 0
-    for chunk in _prefetch_chunks(
-            SequenceChunker(paths, k, sc.chunk_len, hpc=hpc,
-                            segment=segment),
-            depth=4, transform=sc.prepack):
-        sc.add_codes(chunk)
-        nbases += chunk[4]
-        if progress:
-            progress(nbases)
-    return sc
+
+class _Dealer:
+    """Deals one chunk stream out to the members of a group, a step at
+    a time: step s gives chunk s * n + d to member d, and a short last
+    step is padded with `pad` (the empty prepacked chunk).  The first
+    member to ask for a step reads it; every member sees the same end
+    (None) and the same reader error."""
+
+    def __init__(self, chunks, n: int, pad, progress=None):
+        import threading
+        self._chunks = chunks
+        self._n = n
+        self._pad = pad
+        self._progress = progress
+        self._lock = threading.Lock()
+        self._steps: dict = {}   # step -> [chunks or None, takers left]
+        self._error = None
+        self.nbases = 0
+
+    def take(self, step: int, rank: int):
+        with self._lock:
+            if self._error is not None:
+                raise self._error
+            if step not in self._steps:
+                try:
+                    got = list(itertools.islice(self._chunks, self._n))
+                except BaseException as e:
+                    self._error = e
+                    raise
+                deal = None
+                if got:
+                    self.nbases += sum(c[4] for c in got)
+                    deal = got + [self._pad] * (self._n - len(got))
+                    if self._progress:
+                        self._progress(self.nbases)
+                self._steps[step] = [deal, self._n]
+            entry = self._steps[step]
+            entry[1] -= 1
+            if not entry[1]:
+                del self._steps[step]
+            return None if entry[0] is None else entry[0][rank]
+
+
+@contextlib.contextmanager
+def _shard_group(device, devices):
+    """The group of a sharded count in this process: a LocalGroup over
+    `devices` (default shard_devices(device)); inside a launcher job
+    (or a group the caller made) this process's rank, one device, as a
+    DistGroup (a 1-rank group is made here when the job has none)."""
+    from .parallel.local_group import DistGroup, LocalGroup
+    from .parallel.shard_count import one_rank_group
+    if devices is not None or not _in_job():
+        yield LocalGroup(shard_devices(device) if devices is None
+                         else devices)
+        return
+    with one_rank_group(device):
+        group = DistGroup(device)
+        if group.size != 1:
+            raise ValueError(
+                f"a job of {group.size} ranks counts through count_to_db "
+                f"(each rank reads its own segment), not "
+                f"count_to_arrays_sharded")
+        yield group
+
+
+def _count_sharded(paths, k: int, *, mode: str, hpc: bool, chunk_len,
+                   progress, segment, device, devices=None,
+                   spill_dir: str | None = None, **shard_kw):
+    """Count the whole input on the sharded path: one reader, one
+    ShardedCounter a member of the group (_shard_group), every member
+    fed one chunk a step (the reference's _feed_sharded).  -> the
+    members' counters in member order, settled (their owner_parts
+    remain); LAST_SHARD_STATS is written.  With spill_dir, member r
+    spills to spill_dir/m<r>."""
+    import functools
+
+    from .parallel import shard_count as shc
+
+    chunk_len = chunk_len or shard_default_chunk()
+    with _shard_group(device, devices) as group:
+        if any(m.device.type == "cuda" for m in group.members):
+            extract_cuda.build()  # once, before any member thread
+        from . import native
+        native.get_lib()
+        chunks = _prefetch_chunks(
+            SequenceChunker(paths, k, chunk_len, hpc=hpc, segment=segment),
+            depth=max(4, 2 * group.size),
+            transform=functools.partial(prepack, chunk_len=chunk_len))
+        dealer = _Dealer(chunks, group.size,
+                         prepack(np.zeros(0, np.uint8), chunk_len), progress)
+
+        def member(m):
+            sc = shc.ShardedCounter(
+                k, chunk_len=chunk_len, mode=mode, group=m,
+                spill_dir=None if spill_dir is None
+                else _os.path.join(spill_dir, f"m{m.rank}"), **shard_kw)
+            step = 0
+            while (chunk := dealer.take(step, m.rank)) is not None:
+                sc.add_codes(chunk)
+                step += 1
+            sc.settle()
+            return sc
+
+        try:
+            counters = group.run(member)
+        finally:
+            chunks.close()
+    shc.publish_stats(counters)
+    return counters
 
 
 def count_to_arrays_sharded(paths, k: int, mode: str = "canonical",
                             hpc: bool = False,
                             chunk_len: int | None = None, progress=None,
-                            segment=None, device="cuda", **shard_kw):
-    """Sharded counting in one process (a 1-rank group made and destroyed
-    here unless the process already has one) to sorted (hi, lo,
-    counts)."""
-    from .parallel.shard_count import one_rank_group
-    with one_rank_group(device):
-        return _feed_sharded(paths, k, mode=mode, hpc=hpc,
-                             chunk_len=chunk_len, progress=progress,
-                             segment=segment, device=device,
-                             **shard_kw).finalize()
+                            segment=None, device="cuda", devices=None,
+                            **shard_kw):
+    """Sharded counting in one process to sorted (hi, lo, counts): over
+    `devices` (the reference's mesh=; devices may repeat), by default
+    every visible card on cuda or MERYL_TPU_LOCAL_DEVICES members on cpu
+    (shard_devices).  Owner ranges ascend with the member index, so the
+    members' parts concatenate in order."""
+    _check_count_args(k, mode)
+    parts = [p for sc in _count_sharded(
+        paths, k, mode=mode, hpc=hpc, chunk_len=chunk_len,
+        progress=progress, segment=segment, device=device,
+        devices=devices, **shard_kw) for p in sc.owner_parts()]
+    if not parts:
+        z = np.zeros(0, np.uint64)
+        return z, z.copy(), np.zeros(0, np.uint32)
+    return tuple(np.concatenate([p[i] for p in parts]) for i in (1, 2, 3))
 
 
 def _use_multihost(count_suffix, segment) -> bool:
@@ -1064,7 +1202,7 @@ def count_to_arrays(paths, k: int, mode: str = "canonical",
     with index % b == a - 1.  Returns sorted (hi, lo, counts)."""
     _check_count_args(k, mode)
     dev = resolve_device(device)
-    if _use_sharded(count_suffix):
+    if _use_sharded(count_suffix, dev):
         # the sharded path has its own default chunk: pass the caller's
         return count_to_arrays_sharded(paths, k, mode=mode, hpc=hpc,
                                        chunk_len=chunk_len,
@@ -1120,7 +1258,7 @@ def count_to_db(paths, out_path: str, k: int, mode: str = "canonical",
         plan = configure_counting(paths, k, memory_gb, chunk_len,
                                   device=device)
         if plan["batches"] > 1:
-            if _use_sharded(count_suffix):
+            if _use_sharded(count_suffix, device):
                 return _count_to_db_sharded_spill(
                     paths, out_path, k, mode=mode, hpc=hpc,
                     chunk_len=plan["chunk_len"], progress=progress,
@@ -1142,26 +1280,25 @@ def _count_to_db_sharded_spill(paths, out_path: str, k: int, *, mode: str,
                                hpc: bool, chunk_len: int, progress,
                                segment, device) -> MerylDB:
     """The sharded out-of-core count: accumulator spills go to DISK
-    (`<out>.spills`, removed at the end), finalize loads one owner's runs
-    at a time, and the DB is written bucket by bucket as owner ranges
-    stream out, so host peak is one owner's merged range."""
+    (`<out>.spills/m<member>`, removed at the end), and the DB is written
+    bucket by bucket as the members' owner ranges stream out, one owner
+    loaded and merged at a time, so host peak is one owner's merged
+    range."""
     import shutil
 
     from .db import stream_sorted_parts
-    from .parallel.shard_count import one_rank_group
 
     _check_count_args(k, mode)
     spill_dir = out_path + ".spills"
     try:
-        with one_rank_group(device):
-            sc = _feed_sharded(paths, k, mode=mode, hpc=hpc,
-                               chunk_len=chunk_len, progress=progress,
-                               segment=segment, device=device,
-                               spill_dir=spill_dir)
-            return stream_sorted_parts(
-                out_path, k, ((hi, lo, c) for _, hi, lo, c
-                              in sc.iter_finalized_parts()),
-                mode=mode, hpc=hpc)
+        counters = _count_sharded(paths, k, mode=mode, hpc=hpc,
+                                  chunk_len=chunk_len, progress=progress,
+                                  segment=segment, device=device,
+                                  spill_dir=spill_dir)
+        return stream_sorted_parts(
+            out_path, k, ((hi, lo, c) for sc in counters
+                          for _, hi, lo, c in sc.owner_parts()),
+            mode=mode, hpc=hpc)
     finally:
         shutil.rmtree(spill_dir, ignore_errors=True)
 
@@ -1189,7 +1326,6 @@ def count_to_db_batched(paths, out_path: str, k: int, *,
     refused alike).  Completed batches are skipped on resume; the final
     union-sum over the partials writes the output DB and removes them.
     """
-    import itertools
     import json
     import shutil
 

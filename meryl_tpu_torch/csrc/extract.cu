@@ -52,6 +52,7 @@
 // signed int64 order is the unsigned k-mer order.  Keys at invalid
 // positions are unspecified.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -225,12 +226,16 @@ cudaError_t launch(const uint32_t* packed, const int32_t* exc,
                    int64_t n_exc, int64_t L, int64_t n_real, int k,
                    int64_t* out0, int64_t* out1, uint8_t* valid,
                    cudaStream_t stream) {
-  static int per_sm = 0;  // resident CTAs an SM; the same on every call
+  // resident CTAs an SM, the same on every call; atomic, since the
+  // members of a sharded count launch from threads of their own
+  static std::atomic<int> per_sm_once{0};
+  int per_sm = per_sm_once.load(std::memory_order_relaxed);
   cudaError_t e;
   if (per_sm == 0) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, extract_kernel<NW, MODE>, THREADS, 0);
     if (e != cudaSuccess) return e;
+    per_sm_once.store(per_sm, std::memory_order_relaxed);
   }
   int dev, sms;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;

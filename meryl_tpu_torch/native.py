@@ -198,22 +198,24 @@ def merge2(ha, la, ca, hb, lb, cb):
     return merge_cascade([(ha, la, ca), (hb, lb, cb)])
 
 
-_merge_pool: list = []
+# one pool a thread: the members of a sharded count merge on threads of
+# their own at the same time, and must not share staging buffers
+_merge_pool = threading.local()
 
 
 def _pool_buffers(total: int):
-    """Reuse the cascade's two buffer sets across calls: large numpy
-    allocations are fresh mmaps, and first-touch page faults cost
-    ~15us/page in this environment."""
-    global _merge_pool
-    if not _merge_pool or len(_merge_pool[0][0]) < total:
+    """Reuse the cascade's two buffer sets across calls on this thread:
+    large numpy allocations are fresh mmaps, and first-touch page
+    faults cost ~15us/page in this environment."""
+    pool = getattr(_merge_pool, "sets", None)
+    if not pool or len(pool[0][0]) < total:
         cap = max(total, int(total * 1.5))
-        _merge_pool = [[np.empty(cap, np.uint64) for _ in range(3)]
-                       for _ in range(2)]
-        for bufset in _merge_pool:  # pre-fault once
+        pool = _merge_pool.sets = [[np.empty(cap, np.uint64)
+                                    for _ in range(3)] for _ in range(2)]
+        for bufset in pool:  # pre-fault once
             for b in bufset:
                 b[::512] = 0
-    return _merge_pool[0], _merge_pool[1]
+    return pool[0], pool[1]
 
 
 def merge_threads() -> int:

@@ -14,6 +14,7 @@ outputs.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -21,8 +22,10 @@ from .. import _build
 from . import extract as ext
 from . import multiword as mw
 
-# launches of the CUDA kernel since the last reset (set to 0 to reset)
+# launches of the CUDA kernel since the last reset (set to 0 to reset);
+# the members of a sharded count launch from threads of their own
 LAUNCHES = 0
+_launches_lock = threading.Lock()
 
 _MODE_ID = {"canonical": 0, "forward": 1, "reverse": 2, "both": 3}
 
@@ -94,7 +97,8 @@ def _launch(packed2, exc, n_real, k, mode):
                 valid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"extract kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    with _launches_lock:
+        LAUNCHES += 1
     if mode == "both":
         return out0, out1, valid
     return out0, valid

@@ -1,19 +1,25 @@
 """Dryrun of multi-GPU counting through the product CLI (counterpart of
 __graft_entry__.dryrun_multichip / _dryrun_body).
 
-    python -m meryl_tpu_torch.parallel.dryrun N [cuda|cpu]
+    python -m meryl_tpu_torch.parallel.dryrun N [cuda|cpu] [job]
 
-`meryl-torch count` runs sharded over N ranks and again on one device,
-and the two DBs must decode equal: first on a happy-path input, then on
-one that forces the three exactness hatches (a poly-A read overflows
-its capture region: the source is masked out of the exchange and its
-chunk recounted; a 16-periodic motif overflows cells but not the
-capture region: captured windows; a tiny MERYL_TPU_SHARD_ACC_CAP: the
-accumulator spills).  The hatch counters (LAST_SHARD_STATS) are summed
-over the ranks.  At N = 1 the sharded count runs in this process
-(MERYL_TPU_SHARDED=1, a 1-rank group); at N > 1 it runs as a launcher
-job of N ranks (parallel/launch.py), one device each: on cuda that
-needs N cards.
+`meryl-torch count` runs sharded over N members and again on one
+device, and the two DBs must decode equal: first on a happy-path input,
+then on one that forces the three exactness hatches (a poly-A read
+overflows its capture region: the source is masked out of the exchange
+and its chunk recounted; a 16-periodic motif overflows cells but not
+the capture region: captured windows; a tiny MERYL_TPU_SHARD_ACC_CAP:
+the accumulator spills).  The hatch counters (LAST_SHARD_STATS) are
+summed over the members.
+
+By default the sharded count runs in this process, as the reference's
+does (MERYL_TPU_SHARDED=1): on cpu over MERYL_TPU_LOCAL_DEVICES=N
+members, on cuda over every visible card (N may not pass their count).
+`job` runs it as a launcher job of N ranks instead (parallel/launch.py,
+one device each: on cuda that needs N cards), or at N = 1 as a 1-rank
+torch.distributed group in this process (NCCL on cuda).
+dryrun_devices(devices) runs the same scenarios through
+counter.count_to_arrays_sharded(devices=), where devices may repeat.
 """
 
 from __future__ import annotations
@@ -44,23 +50,40 @@ def _with_env(env, fn):
                 os.environ[key] = val
 
 
-def _count_both(cli, MerylDB, n, device, td, fa, tag, env):
-    """Sharded (n ranks) and single-device CLI counts of fa; they must
-    decode equal.  -> (uniques, total, hatch stats summed over ranks)."""
+def _cli_count(cli, argv, env, tag):
+    if _with_env(env, lambda: cli.main(argv)) != 0:
+        raise AssertionError(f"sharded CLI count failed ({tag})")
+
+
+def _sharded_in_process(cli, n, device):
+    """The CLI's sharded count in this process, over n members."""
     from . import shard_count as sc
-    db_s = os.path.join(td, f"sharded_{tag}.meryl")
-    db_1 = os.path.join(td, f"single_{tag}.meryl")
-    argv = ["count", "k=21", fa, "output", db_s, f"device={device}"]
-    if n == 1:
-        if _with_env(dict(env, MERYL_TPU_SHARDED="1"),
-                     lambda: cli.main(argv)) != 0:
-            raise AssertionError(f"sharded CLI count failed ({tag})")
-        stats = dict(sc.LAST_SHARD_STATS)
-    else:
+
+    def run(fa, db, env, tag):
+        env = dict(env, MERYL_TPU_SHARDED="1")
+        if device == "cpu":
+            env["MERYL_TPU_LOCAL_DEVICES"] = str(n)
+        _cli_count(cli, ["count", "k=21", fa, "output", db,
+                         f"device={device}"], env, tag)
+        return dict(sc.LAST_SHARD_STATS)
+    return run
+
+
+def _sharded_job(cli, n, device):
+    """The CLI's sharded count as n ranks of a torch.distributed group:
+    a 1-rank group in this process, or a launcher job."""
+    from . import shard_count as sc
+
+    def run(fa, db, env, tag):
+        argv = ["count", "k=21", fa, "output", db, f"device={device}"]
+        if n == 1:
+            with sc.one_rank_group(device):
+                _cli_count(cli, argv, dict(env, MERYL_TPU_SHARDED="1"), tag)
+            return dict(sc.LAST_SHARD_STATS)
         # a launcher job: its ranks chunk by MERYL_TPU_CHUNK and write
         # their hatch counters to MERYL_TPU_MH_DEBUG
         from .launch import main as launch
-        dbg = os.path.join(td, f"ranks_{tag}")
+        dbg = os.path.join(os.path.dirname(db), f"ranks_{tag}")
         renv = dict(env, MERYL_TPU_CHUNK=env["MERYL_TPU_SHARD_CHUNK"],
                     MERYL_TPU_MH_DEBUG=dbg)
         rc = _with_env(renv, lambda: launch(
@@ -73,9 +96,31 @@ def _count_both(cli, MerylDB, n, device, td, fa, tag, env):
                 ranks.append(json.load(f)["shard_stats"])
         if len(ranks) != n:
             raise AssertionError(f"{len(ranks)} of {n} ranks reported")
-        # spills and steps are equal on every rank; the rest is summed
-        stats = {key: (ranks[0][key] if key in ("spills", "steps") else
-                       sum(r[key] for r in ranks)) for key in ranks[0]}
+        return sc.combine_stats(ranks)
+    return run
+
+
+def _sharded_api(devices):
+    """count_to_arrays_sharded over `devices`, written as a DB."""
+    from .. import counter
+    from ..db import MerylDB
+    from . import shard_count as sc
+
+    def run(fa, db, env, tag):
+        arrays = _with_env(env, lambda: counter.count_to_arrays_sharded(
+            [fa], 21, devices=devices))
+        MerylDB.write(db, 21, *arrays)
+        return dict(sc.LAST_SHARD_STATS)
+    return run
+
+
+def _count_both(cli, MerylDB, sharded, device, td, fa, tag, env):
+    """Sharded (`sharded(fa, db, env, tag)` -> its hatch stats) and
+    single-device CLI counts of fa; they must decode equal.  ->
+    (uniques, total, hatch stats summed over the members)."""
+    db_s = os.path.join(td, f"sharded_{tag}.meryl")
+    db_1 = os.path.join(td, f"single_{tag}.meryl")
+    stats = sharded(fa, db_s, env, tag)
     if _with_env({"MERYL_TPU_SHARDED": "0"}, lambda: cli.main(
             ["count", "k=21", fa, "output", db_1, f"device={device}"])) != 0:
         raise AssertionError(f"single-device CLI count failed ({tag})")
@@ -89,7 +134,7 @@ def _count_both(cli, MerylDB, n, device, td, fa, tag, env):
     return len(s[2]), int(s[2].sum()), stats
 
 
-def _scenarios(cli, MerylDB, n, device):
+def _scenarios(cli, MerylDB, sharded, n, device):
     """-> (happy uniques, happy total, hatch scenario's stats)."""
     rng = np.random.default_rng(7)
     bases = "ACGT"
@@ -102,7 +147,7 @@ def _scenarios(cli, MerylDB, n, device):
                 f.write("".join(bases[b] for b in
                                 rng.integers(0, 4, size=700)) + "\n")
         n_unique, n_total, _ = _count_both(
-            cli, MerylDB, n, device, td, fa, "happy",
+            cli, MerylDB, sharded, device, td, fa, "happy",
             {"MERYL_TPU_SHARD_CHUNK": str(HAPPY_CHUNK)})
 
         # scenario 2: the three hatches through the same CLI
@@ -110,44 +155,76 @@ def _scenarios(cli, MerylDB, n, device):
         with open(fa2, "w") as f:
             f.write(">polyA\n" + "A" * 1400 + "\n")
             f.write(">motif\n" + "ACGTAACTGGTCAGTT" * 80 + "\n")
-            # reads scale with the ranks, so that the budget both fits
+            # reads scale with the members, so that the budget both fits
             # one merge and is outgrown by the uniques
             for i in range(max(16, 4 * n)):
                 f.write(f">r{i}\n")
                 f.write("".join(bases[b] for b in
                                 rng.integers(0, 4, size=700)) + "\n")
         _, _, stats = _count_both(
-            cli, MerylDB, n, device, td, fa2, "hatch",
+            cli, MerylDB, sharded, device, td, fa2, "hatch",
             {"MERYL_TPU_SHARD_CHUNK": str(HATCH_CHUNK),
              "MERYL_TPU_SHARD_ACC_CAP": str(HATCH_ACC_CAP)})
     return n_unique, n_total, stats
 
 
-def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:
-    """Drive `meryl-torch count` sharded over n_devices ranks against the
-    single-device count; -> the hatch scenario's stats (summed over the
-    ranks).  Raises when a DB differs or a hatch was not walked."""
-    from .. import cli, resolve_device
+def _walk(sharded, n, device, what):
+    from .. import cli
     from ..db import MerylDB
 
-    dev = resolve_device(device)
     n_unique, n_total, stats = _with_env(
         {"MERYL_TPU_CHUNK": str(SINGLE_CHUNK)},
-        lambda: _scenarios(cli, MerylDB, n_devices, device))
+        lambda: _scenarios(cli, MerylDB, sharded, n, device))
     walked = [key for key in ("spills", "recount_chunks",
                               "captured_windows") if stats.get(key)]
-    for key, what in (("spills", "spill"), ("recount_chunks",
+    for key, name in (("spills", "spill"), ("recount_chunks",
                                             "mask+recount"),
                       ("captured_windows", "capture")):
         if key not in walked:
-            raise AssertionError(f"{what} hatch not exercised: {stats}")
-    print(f"dryrun_multichip ok: {n_devices} ranks on {dev.type}, k=21, "
-          f"CLI count sharded == single ({n_unique} unique / {n_total} "
-          f"total); hatches walked exactly: "
+            raise AssertionError(f"{name} hatch not exercised: {stats}")
+    print(f"dryrun_multichip ok: {what}, k=21, sharded == single "
+          f"({n_unique} unique / {n_total} total); hatches walked exactly: "
           f"{ {key: stats[key] for key in walked} }")
     return stats
 
 
+def dryrun_multichip(n_devices: int, device: str = "cuda",
+                     job: bool = False) -> dict:
+    """Drive `meryl-torch count` sharded over n_devices members against
+    the single-device count; -> the hatch scenario's stats (summed over
+    the members).  In this process by default; job=True as n_devices
+    ranks of a torch.distributed group.  Raises when a DB differs or a
+    hatch was not walked."""
+    from .. import cli, resolve_device
+
+    dev = resolve_device(device)
+    if job:
+        return _walk(_sharded_job(cli, n_devices, device), n_devices,
+                     device, f"{n_devices} ranks of a job on {dev.type}")
+    if dev.type == "cuda":
+        import torch
+        have = torch.cuda.device_count()
+        if n_devices > have:
+            raise ValueError(f"dryrun_multichip({n_devices}, cuda): this "
+                             f"process sees {have} card(s)")
+        n_devices = have  # the CLI takes every visible card
+    return _walk(_sharded_in_process(cli, n_devices, device), n_devices,
+                 device, f"{n_devices} members in one process on "
+                 f"{dev.type}")
+
+
+def dryrun_devices(devices) -> dict:
+    """The dryrun's scenarios through count_to_arrays_sharded over
+    `devices` (which may repeat), against the single-device CLI count
+    on the first device's type; -> the hatch scenario's stats."""
+    import torch
+    devs = [torch.device(d) for d in devices]
+    return _walk(_sharded_api(devs), len(devs), devs[0].type,
+                 f"{len(devs)} members over {sorted({str(d) for d in devs})}"
+                 f" through count_to_arrays_sharded")
+
+
 if __name__ == "__main__":
     dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 1,
-                     sys.argv[2] if len(sys.argv) > 2 else "cuda")
+                     sys.argv[2] if len(sys.argv) > 2 else "cuda",
+                     job=sys.argv[3:4] == ["job"])

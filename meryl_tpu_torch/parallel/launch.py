@@ -10,7 +10,9 @@ Every rank runs the same CLI argv; `count` sees the job
 through parallel/multihost.py.  On cuda (the default) each rank takes
 its own card, and --nprocs may not pass torch.cuda.device_count(): a
 card is never shared and the job never runs gloo instead; device=cpu
-runs gloo ranks on the CPU.  --devices-per-proc is accepted only as 1.
+runs gloo ranks on the CPU.  --devices-per-proc is accepted only as 1:
+several cards of one process count without the launcher (plain `count`
+on a host with several cards, counter.py's one-process sharded path).
 When one rank exits with an error, the launcher ends the others.  On
 several machines, run each rank with the three variables set directly,
 MERYL_TPU_COORD pointing at rank 0.
@@ -80,8 +82,12 @@ def main(argv=None) -> int:
         elif argv[0] == "--devices-per-proc":
             if int(argv[1]) != 1:
                 sys.stderr.write(
-                    "--devices-per-proc: a rank of meryl_tpu_torch has one "
-                    "device; start more ranks with --nprocs\n")
+                    "--devices-per-proc: a rank of a meryl_tpu_torch job "
+                    "has one device; start more ranks with --nprocs, or "
+                    "count without the launcher, where one process takes "
+                    "every card it sees (MERYL_TPU_SHARDED); a job of "
+                    "several-device processes is not ported (ROADMAP.md, "
+                    "Not ported)\n")
                 return 2
             argv = argv[2:]
         elif argv[0] == "--":

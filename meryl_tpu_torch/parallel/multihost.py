@@ -23,8 +23,11 @@ Environment contract (parallel/launch.py sets it):
   MERYL_TPU_NPROCS   number of processes
   MERYL_TPU_PROCID   this process's rank (0-based); on cuda it takes
                      cuda:{PROCID % device_count}
-MERYL_TPU_LOCAL_DEVICES (the reference's virtual CPU devices a process)
-has no counterpart and is refused: start more ranks instead.
+A rank is one device.  MERYL_TPU_LOCAL_DEVICES (the reference's virtual
+CPU devices a process) is refused in a job: several devices of one
+process count on the one-process path (MERYL_TPU_SHARDED=1 count,
+counter.count_to_arrays_sharded(devices=)), and a job of such processes
+is not ported (ROADMAP.md, "Not ported").
 MERYL_TPU_MH_DEBUG=DIR writes each rank's read volume and hatch counters
 (LAST_SHARD_STATS) to DIR/mh_read_bases_proc{rank}.json.
 """
@@ -39,7 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .shard_count import GROUP_TIMEOUT, backend_for, rank_device
+from .local_group import GROUP_TIMEOUT, backend_for, rank_device
 
 PART_DIR_SUFFIX = ".mhparts"
 
@@ -54,9 +57,12 @@ def init_from_env(device="cuda") -> tuple[int, int]:
     the group is made."""
     if os.environ.get("MERYL_TPU_LOCAL_DEVICES"):
         raise ValueError(
-            "MERYL_TPU_LOCAL_DEVICES has no counterpart in meryl_tpu_torch: "
-            "a rank is one process with one device; start more ranks "
-            "(parallel/launch.py --nprocs)")
+            "MERYL_TPU_LOCAL_DEVICES in a job has no counterpart in "
+            "meryl_tpu_torch: a rank of a job is one process with one "
+            "device (start more ranks with parallel/launch.py --nprocs); "
+            "several devices of one process count without a job "
+            "(MERYL_TPU_SHARDED=1 count), and a job of such processes is "
+            "not ported (ROADMAP.md, Not ported)")
     coord = os.environ["MERYL_TPU_COORD"]
     nprocs = int(os.environ["MERYL_TPU_NPROCS"])
     pid = int(os.environ["MERYL_TPU_PROCID"])
@@ -100,7 +106,7 @@ def count_to_arrays_multihost(paths, k: int, mode: str = "canonical",
     unique (kmer, count) set.  assemble_db builds the DB from them."""
     from ..counter import _prefetch_chunks, default_chunk
     from ..io.sequence import SequenceChunker
-    from .shard_count import ShardedCounter
+    from .shard_count import ShardedCounter, publish_stats
 
     if not dist.is_initialized():
         raise RuntimeError("count_to_arrays_multihost needs a process "
@@ -128,6 +134,7 @@ def count_to_arrays_multihost(paths, k: int, mode: str = "canonical",
         if progress:
             progress(nbases)
     parts = sc.finalize_parts()
+    publish_stats([sc])
     dbg_dir = os.environ.get("MERYL_TPU_MH_DEBUG")
     if dbg_dir:
         # each rank's read volume and hatch counters, one small file a

@@ -1,10 +1,13 @@
 """Multi-GPU sharded k-mer counting: the route-first step over one
 all-to-all (counterpart of meryl_tpu/parallel/shard_count.py).
 
-Each rank is one process with one device (NCCL on cuda, gloo on cpu)
-and feeds its own chunk every step.  A step is the single-device
-accumulator's routed dataflow (ops/accum.py) with an exchange in the
-middle:
+A rank is a member of a group (parallel/local_group.py): one thread a
+device of this process (LocalGroup, the reference's mesh), or one
+process a device of a torch.distributed job (DistGroup: NCCL on cuda,
+gloo on cpu).  The rank's code is the same in both; only the group
+object differs.  Each rank feeds its own chunk every step.  A step is
+the single-device accumulator's routed dataflow (ops/accum.py) with an
+exchange in the middle:
 
   1. the rank extracts canonical windows from its chunk with the
      extraction kernel and routes them to B key-range bucket rows with
@@ -42,27 +45,24 @@ import contextlib
 import os
 import shutil
 import tempfile
-from datetime import timedelta
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from .. import kmer as km
-from .. import resolve_device
 from ..ops import accum
 from ..ops import multiword as mw
 from ..ops.accum import OVF_CAP
+from .local_group import (GROUP_TIMEOUT, MAX, SUM, DistGroup, backend_for,
+                          rank_device)
 
-# hatch counters of this process's most recently finalized
-# ShardedCounter.  Per rank: spills and steps are equal on every rank;
-# captured_windows and recount_chunks count this rank's own chunks, and
-# their sum over the ranks is the reference's single-process figure
+# hatch counters of this process's most recent sharded count, written
+# once it ends (publish_stats): spills and steps are equal on every
+# rank; captured_windows and recount_chunks count each rank's own
+# chunks, summed over the ranks of the process (the reference's figure
+# for the same mesh).  A rank of a job writes its own.
 LAST_SHARD_STATS: dict = {}
-
-# how long a collective may wait for the other ranks before the group
-# fails, so that a rank that raised alone cannot hang the others forever
-GROUP_TIMEOUT = timedelta(seconds=600)
 
 
 def plan_shard_route(chunk_len: int, k: int, n: int) -> dict:
@@ -109,19 +109,6 @@ def owner_of_keys(hi: np.ndarray, lo: np.ndarray, k: int, bits: int,
     return (row.numpy() // rpo).astype(np.int32)
 
 
-def backend_for(device) -> str:
-    """The collective backend of a device: NCCL for cuda, gloo for cpu."""
-    return "nccl" if torch.device(device).type == "cuda" else "gloo"
-
-
-def rank_device(device) -> torch.device:
-    """This rank's device: cuda without an index is the current one."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 @contextlib.contextmanager
 def one_rank_group(device):
     """The process group of a sharded count in one process: the default
@@ -151,22 +138,23 @@ def one_rank_group(device):
 # ------------------------------------------------------------ one rank
 # The reference's three shard_map programs (make_routed_step,
 # make_routed_merge, make_mask_sources) as plain functions on one rank's
-# tensors around torch.distributed calls.
+# tensors around the group's collectives.
 
-def exchange_cells(cells: torch.Tensor, n: int):
+def exchange_cells(cells: torch.Tensor, group):
     """(B, Wc[, 2]) cell grid -> (rpo, n * Wc[, 2]) staged group: rows
     [d * rpo, (d + 1) * rpo) go to rank d, and what arrives from source
     s fills columns [s * Wc, (s + 1) * Wc) (the reference's tiled
     lax.all_to_all with split_axis 0 and concat_axis 1)."""
+    n = group.size
     B, W = cells.shape[:2]
     tail = cells.shape[2:]
     out = torch.empty_like(cells)
-    dist.all_to_all_single(out, cells.contiguous())
+    group.all_to_all_single(out, cells.contiguous())
     return out.reshape((n, B // n, W) + tail).transpose(0, 1) \
         .reshape((B // n, n * W) + tail)
 
 
-def routed_step(packed2, exc, n_real: int, cfg: tuple, n: int, rank: int):
+def routed_step(packed2, exc, n_real: int, cfg: tuple, group):
     """One step of one rank: extract + route its chunk, exchange the
     cells.  -> (staged (rpo, n * Wc[, 2]), captured overflow (R0,
     OVF_CAP[, 2]), n_ovf_row (R0,), stats (3, n) int64 summed over the
@@ -175,17 +163,19 @@ def routed_step(packed2, exc, n_real: int, cfg: tuple, n: int, rank: int):
     its all-ones k-mer count."""
     cells, ovf, n_ovf_row, n_allones = accum.route_chunk_packed(
         packed2, exc, n_real, cfg)
-    staged = exchange_cells(cells, n)
+    staged = exchange_cells(cells, group)
     bad = (n_ovf_row.max() > OVF_CAP).to(torch.int64)
     ncap = torch.clamp(n_ovf_row, max=OVF_CAP).sum()
-    stats = torch.zeros((3, n), dtype=torch.int64, device=cells.device)
-    stats[:, rank] = torch.stack([bad, ncap, n_allones.to(torch.int64)])
-    dist.all_reduce(stats)
+    stats = torch.zeros((3, group.size), dtype=torch.int64,
+                        device=cells.device)
+    stats[:, group.rank] = torch.stack([bad, ncap,
+                                        n_allones.to(torch.int64)])
+    group.all_reduce(stats, SUM)
     return staged, ovf, n_ovf_row, stats
 
 
 def routed_merge(acc_key, acc_counts, staged, k: int, La_out: int,
-                 vmax: int):
+                 vmax: int, group):
     """Fold staged groups into this rank's accumulator.  -> (keys,
     counts, nmax) with nmax the largest row's distinct keys over ALL
     ranks (all_reduce MAX): past La_out the rows were cut and the caller
@@ -193,7 +183,7 @@ def routed_merge(acc_key, acc_counts, staged, k: int, La_out: int,
     key, counts, n_runs = accum.merge_cells(acc_key, acc_counts,
                                             tuple(staged), k, La_out, vmax)
     nmax = n_runs.max().reshape(1).to(torch.int64)
-    dist.all_reduce(nmax, op=dist.ReduceOp.MAX)
+    group.all_reduce(nmax, MAX)
     return key, counts, nmax
 
 
@@ -214,9 +204,11 @@ class ShardedCounter:
     hatch extras per owner: owner key ranges ascend with rank, so the
     ranks' parts concatenate in order.
 
-    The ranks are those of the default process group, which must
-    exist; device is this rank's, whose backend the group must have
-    (NCCL for cuda, gloo for cpu)."""
+    group: a LocalGroup member (parallel/local_group.py), whose device
+    is the rank's; or None, for this process's rank of the default
+    torch.distributed group, which must exist, on `device` (default
+    cuda), whose backend the group must have (NCCL for cuda, gloo for
+    cpu)."""
 
     # staged groups folded per merge: each carries about n chunks' mass
     # an owner row, so the single device's M = 8 divides by n
@@ -224,19 +216,16 @@ class ShardedCounter:
 
     def __init__(self, k: int, *, chunk_len: int, mode: str = "canonical",
                  acc_cap: int | None = None, spill_dir: str | None = None,
-                 device="cuda"):
-        if not dist.is_initialized():
-            raise RuntimeError(
-                "ShardedCounter needs a torch.distributed process group "
-                "(parallel.multihost.init_from_env, or one_rank_group)")
-        self.device = rank_device(device)
-        want = backend_for(self.device)
-        if dist.get_backend() != want:
-            raise ValueError(
-                f"device {self.device} needs the {want} backend; the group "
-                f"runs {dist.get_backend()}")
-        self.n = dist.get_world_size()
-        self.rank = dist.get_rank()
+                 device=None, group=None):
+        if group is None:
+            group = DistGroup("cuda" if device is None else device)
+        elif device is not None and rank_device(device) != group.device:
+            raise ValueError(f"device {device} is not the member's "
+                             f"{group.device}")
+        self.group = group
+        self.device = group.device
+        self.n = group.size
+        self.rank = group.rank
         self.k = int(k)
         self.chunk_len = int(chunk_len)
         if self.chunk_len % 16:
@@ -256,7 +245,8 @@ class ShardedCounter:
             acc_cap = int(os.environ["MERYL_TPU_SHARD_ACC_CAP"])
         if acc_cap is None:
             acc_cap = default_acc_cap(
-                self.k, self.device, self.MERGE_EVERY * self.B * self.Wc)
+                self.k, self.device, self.MERGE_EVERY * self.B * self.Wc,
+                group.share)
         self.acc_cap = int(acc_cap)
         # the per-row cap has 2x slack: the equal-mass map balances rows
         # only in expectation; the proactive spill (nmax * rpo >= acc_cap
@@ -278,6 +268,7 @@ class ShardedCounter:
         self._spill_seq = 0
         self._spills: dict = {}
         self._finalized = False
+        self._owned_extras = None  # settle(): the extras this rank owns
         self.masked_steps = 0      # steps with a bad source masked out
         self.stats = {"spills": 0, "recount_chunks": 0,
                       "captured_windows": 0, "steps": 0}
@@ -314,7 +305,7 @@ class ShardedCounter:
         out = routed_step(
             torch.from_numpy(packed2.view(np.int32)).to(self.device),
             torch.from_numpy(exc).to(self.device), n_real, self.cfg,
-            self.n, self.rank)
+            self.group)
         self.stats["steps"] += 1
         self._pending.append((out, raw))
         if len(self._pending) > 1:
@@ -379,7 +370,7 @@ class ShardedCounter:
             self._acc = self._fresh_acc(self.La)
         key, counts, nmax = routed_merge(
             self._acc[0], self._acc[1], staged, self.k, self.La,
-            int(km.VALUE_MAX))
+            int(km.VALUE_MAX), self.group)
         self._unverified = (key, counts, nmax, self._acc, staged, self.La)
         self._acc = (key, counts)  # optimistic: overflow is rare
 
@@ -415,7 +406,7 @@ class ShardedCounter:
                     f"acc_cap={self.acc_cap}; raise acc_cap")
             key, counts, nmax_d = routed_merge(
                 self._acc[0], self._acc[1], staged, self.k, La_out,
-                int(km.VALUE_MAX))
+                int(km.VALUE_MAX), self.group)
             nmax = int(nmax_d.item())
             if nmax <= La_out:
                 break
@@ -507,8 +498,8 @@ class ShardedCounter:
             return [(hi, lo, c)]
         lens_t = [torch.zeros(1, dtype=torch.int64, device=self.device)
                   for _ in range(self.n)]
-        dist.all_gather(lens_t, torch.tensor([len(c)], dtype=torch.int64,
-                                             device=self.device))
+        self.group.all_gather(lens_t, torch.tensor(
+            [len(c)], dtype=torch.int64, device=self.device))
         lens = torch.cat(lens_t).cpu().numpy()
         mx = int(lens.max())
         if mx == 0:
@@ -518,17 +509,16 @@ class ShardedCounter:
             buf[i, :len(c)] = a
         mine = torch.from_numpy(buf.view(np.int64)).to(self.device)
         got = [torch.empty_like(mine) for _ in range(self.n)]
-        dist.all_gather(got, mine)
+        self.group.all_gather(got, mine)
         allb = torch.stack(got).cpu().numpy().view(np.uint64)
         return [tuple(allb[r, i, :lens[r]] for i in range(3))
                 for r in range(self.n)]
 
-    def iter_finalized_parts(self):
-        """Yield this rank's (owner row, hi, lo, counts): spilled runs,
-        the live accumulator and the hatch extras it owns, union-summed.
-        A generator, so a caller can stream owner ranges into a DB
-        writer (with spill_dir, host peak is one owner's range)."""
-        from ..counter import merge_runs
+    def settle(self) -> None:
+        """Every collective of finalize: resolve the pending steps,
+        merge what is staged, check the last merge, exchange the hatch
+        extras and keep those this rank owns.  Every rank calls it (in
+        lockstep); owner_parts then needs no other rank.  Once only."""
         if self._finalized:
             raise RuntimeError(
                 "ShardedCounter already finalized: finalize()/"
@@ -539,10 +529,6 @@ class ShardedCounter:
         if self._staged:
             self._merge_staged()
         self._verify_merge()
-        LAST_SHARD_STATS.clear()
-        LAST_SHARD_STATS.update(self.stats)
-        acc_runs = self._download_acc() if self._acc_nonempty() else {}
-        self._acc = None
 
         # extras: exchanged, then split by owner with the device's map;
         # each source's run stays a run of its own (sorted and unique),
@@ -564,12 +550,31 @@ class ShardedCounter:
                 np.array([(1 << max(0, twok - 64)) - 1], np.uint64),
                 np.array([(1 << min(64, twok)) - 1], np.uint64),
                 np.array([self._n_allones], np.uint64)))
+        self._owned_extras = extras
 
-        runs = [self._load_run(r) for r in self._spills.get(self.rank, [])]
+    def owner_parts(self):
+        """After settle: yield this rank's (owner row, hi, lo, counts):
+        spilled runs, the live accumulator and the hatch extras it owns,
+        union-summed.  No collective, so any thread may drain the ranks'
+        parts one owner at a time (with spill_dir, host peak is one
+        owner's range)."""
+        from ..counter import merge_runs
+        if self._owned_extras is None:
+            raise RuntimeError("owner_parts() runs once, after settle()")
+        extras, self._owned_extras = self._owned_extras, None
+        acc_runs = self._download_acc() if self._acc_nonempty() else {}
+        self._acc = None
+        runs = [self._load_run(r) for r in self._spills.pop(self.rank, [])]
         runs += list(acc_runs.values()) + extras
         if runs:
             hi, lo, c = merge_runs(runs)
             yield (self.rank, hi, lo, c)
+
+    def iter_finalized_parts(self):
+        """settle, then owner_parts: a generator, so a caller can stream
+        owner ranges into a DB writer."""
+        self.settle()
+        yield from self.owner_parts()
 
     def finalize_parts(self):
         """-> [(owner row, hi, lo, counts)] of this rank, materialized."""
@@ -588,12 +593,29 @@ class ShardedCounter:
                 np.concatenate([p[3] for p in parts]).astype(np.uint32))
 
 
-def default_acc_cap(k: int, device, staged_slots: int) -> int:
+def default_acc_cap(k: int, device, staged_slots: int,
+                    share: int = 1) -> int:
     """Entries a rank's accumulator may hold before it spills: the
-    rank's device budget (counter.acc_cap_bytes: half the card, or
-    MERYL_TPU_ACC_CAP_GB) over the bytes merge_cells holds a slot
+    rank's part of its device budget (counter.acc_cap_bytes: half the
+    card, or MERYL_TPU_ACC_CAP_GB, over the `share` ranks on that
+    device) over the bytes merge_cells holds a slot
     (counter.acc_bytes_per_unique), less one merge's staged cells, and
     halved, since a row may grow to twice its share (La_max)."""
     from ..counter import acc_bytes_per_unique, acc_cap_bytes
-    slots = acc_cap_bytes(device) // acc_bytes_per_unique(k)
+    slots = acc_cap_bytes(device) // share // acc_bytes_per_unique(k)
     return max(1, (slots - staged_slots) // 2)
+
+
+def combine_stats(stats) -> dict:
+    """The hatch counters of a count from its ranks' `stats` dicts:
+    spills and steps of the first rank (equal on every rank), captured
+    windows and recounted chunks summed."""
+    return {key: stats[0][key] if key in ("spills", "steps")
+            else sum(s[key] for s in stats) for key in stats[0]}
+
+
+def publish_stats(counters) -> None:
+    """LAST_SHARD_STATS of a count over this process's ranks
+    `counters`."""
+    LAST_SHARD_STATS.clear()
+    LAST_SHARD_STATS.update(combine_stats([c.stats for c in counters]))

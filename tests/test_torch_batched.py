@@ -446,7 +446,7 @@ def test_count_memory_one_batch_uses_plan_chunk(fasta, tmp_path,
 def test_multi_device_requests_count_like_one_device(fasta, tmp_path,
                                                      monkeypatch, env, value):
     """What meryl_tpu runs on several devices runs in the port and counts
-    what one device counts: MERYL_TPU_SHARDED=1 as a 1-rank group in this
+    what one device counts: MERYL_TPU_SHARDED=1 on the sharded path in this
     process (count_to_arrays, count_to_db, and the sharded memory= branch
     that spills to disk), a MERYL_TPU_COORD job of 2 gloo ranks through
     count_to_db.  A job of one process is a local count."""

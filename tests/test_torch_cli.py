@@ -187,6 +187,7 @@ def test_port_imports_no_jax():
                 "meryl_tpu_torch.ops.bacjoin", "meryl_tpu_torch.v2.engine",
                 "meryl_tpu_torch.v2.parser",
                 "meryl_tpu_torch.parallel.shard_count",
+                "meryl_tpu_torch.parallel.local_group",
                 "meryl_tpu_torch.parallel.multihost",
                 "meryl_tpu_torch.parallel.scaling",
                 "meryl_tpu_torch.io.sequence.open_maybe_compressed"):
@@ -224,7 +225,7 @@ def test_cuda_device_without_cuda_fails_clearly(reads, monkeypatch,
 @pytest.mark.parametrize("env", ["MERYL_TPU_SHARDED", "MERYL_TPU_COORD"])
 def test_multi_device_words_count_like_one_device(reads, monkeypatch, env):
     """meryl_tpu's multi-device requests run in the port: MERYL_TPU_SHARDED=1
-    counts as a 1-rank group in this process, and a MERYL_TPU_COORD job
+    counts on the sharded path in this process, and a MERYL_TPU_COORD job
     of 2 gloo ranks (the launcher's contract) counts its segments; both
     write the single-device DB."""
     root, fq = reads

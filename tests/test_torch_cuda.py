@@ -734,8 +734,8 @@ def test_meryl2_engine_cuda_matches_cpu(cuda, k, m):
 
 @pytest.mark.parametrize("k", [21, 33])
 def test_sharded_count_nccl_matches_count(cuda, tmp_path, monkeypatch, k):
-    """MERYL_TPU_SHARDED=1 on the card: a 1-rank NCCL group, made and
-    destroyed by the counter, gives count_to_arrays' arrays; the
+    """MERYL_TPU_SHARDED=1 on the card inside a 1-rank NCCL group (the
+    path of a launcher job's rank) gives count_to_arrays' arrays; the
     extraction kernel launches once a step and the hatches run."""
     import torch.distributed as dist
 
@@ -751,10 +751,42 @@ def test_sharded_count_nccl_matches_count(cuda, tmp_path, monkeypatch, k):
     monkeypatch.setenv("MERYL_TPU_SHARD_ACC_CAP", str(1 << 16))
     monkeypatch.setenv("MERYL_TPU_SHARDED", "1")
     before = extract_cuda.LAUNCHES
-    got = counter.count_to_arrays([fa], k, device="cuda")
+    with shard_count.one_rank_group("cuda"):
+        assert dist.get_backend() == "nccl"
+        got = counter.count_to_arrays([fa], k, device="cuda")
     stats = dict(shard_count.LAST_SHARD_STATS)
     assert not dist.is_initialized()
     assert extract_cuda.LAUNCHES - before >= stats["steps"] >= 1
+    assert stats["recount_chunks"] >= 1 and stats["spills"] >= 1
+    monkeypatch.setenv("MERYL_TPU_SHARDED", "0")
+    want = counter.count_to_arrays([fa], k, device="cuda")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("k", [21, 33])
+def test_local_members_on_one_card_match_count(cuda, tmp_path, monkeypatch,
+                                              k):
+    """Two members of one process on cuda:0 (a LocalGroup, one thread
+    each) give count_to_arrays' arrays; each launches the extraction
+    kernel once a step, and the hatches run."""
+    import torch.distributed as dist
+
+    from meryl_tpu_torch.parallel import shard_count
+    rng = np.random.default_rng(7)
+    fa = str(tmp_path / "in.fa")
+    with open(fa, "w") as f:
+        f.write(">polyA\n" + "A" * 3000 + "\n")
+        for i in range(300):
+            s = "".join("ACTG"[c] for c in rng.integers(0, 4, 400))
+            f.write(f">s{i}\n{s}\n")
+    monkeypatch.setenv("MERYL_TPU_SHARD_ACC_CAP", str(1 << 15))
+    before = extract_cuda.LAUNCHES
+    got = counter.count_to_arrays_sharded([fa], k, chunk_len=1 << 14,
+                                          devices=["cuda:0"] * 2)
+    stats = dict(shard_count.LAST_SHARD_STATS)
+    assert not dist.is_initialized()
+    assert extract_cuda.LAUNCHES - before >= 2 * stats["steps"] >= 2
     assert stats["recount_chunks"] >= 1 and stats["spills"] >= 1
     monkeypatch.setenv("MERYL_TPU_SHARDED", "0")
     want = counter.count_to_arrays([fa], k, device="cuda")

@@ -173,7 +173,7 @@ def test_sharded_memory_branch_spills_to_disk(tmp_path, monkeypatch):
         seen.append(self.spill_dir) or real(self, d, run)))
     db = counter.count_to_db(fa, out, 13, memory_gb=1e-6, device="cpu")
     assert sc.LAST_SHARD_STATS["spills"] > 0
-    assert set(seen) == {out + ".spills"}
+    assert set(seen) == {os.path.join(out + ".spills", "m0")}
     assert not os.path.exists(out + ".spills")
     ref_out = str(tmp_path / "ref.meryl")
     ref_counter.count_to_db(fa, ref_out, 13, memory_gb=1e-6)
@@ -221,8 +221,11 @@ def test_launcher_ends_the_other_ranks():
 
 @pytest.mark.parametrize("n", [1, 2])
 def test_dryrun_multichip_walks_every_hatch(n, monkeypatch):
+    """The dryrun's job form: a 1-rank group in this process, or a
+    launcher job of 2 ranks (tests/test_torch_local_shard.py runs the
+    in-process form)."""
     monkeypatch.delenv("MERYL_TPU_SHARDED", raising=False)
-    stats = dryrun.dryrun_multichip(n, "cpu")
+    stats = dryrun.dryrun_multichip(n, "cpu", job=True)
     assert stats["spills"] > 0 and stats["recount_chunks"] > 0 \
         and stats["captured_windows"] > 0
     assert "MERYL_TPU_SHARD_ACC_CAP" not in os.environ

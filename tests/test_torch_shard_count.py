@@ -187,10 +187,11 @@ def test_exchange_layout_at_one_rank(tmp_path):
     mask_sources sets exactly a bad source's column block."""
     import torch.distributed as dist
     with sc.one_rank_group("cpu"):
+        group = sc.DistGroup("cpu")
         cells = torch.arange(8 * 6, dtype=torch.int64).reshape(8, 6)
-        assert torch.equal(sc.exchange_cells(cells, 1), cells)
+        assert torch.equal(sc.exchange_cells(cells, group), cells)
         wide = torch.arange(4 * 6 * 2, dtype=torch.int64).reshape(4, 6, 2)
-        assert torch.equal(sc.exchange_cells(wide, 1), wide)
+        assert torch.equal(sc.exchange_cells(wide, group), wide)
     assert not dist.is_initialized()
     staged = torch.zeros((3, 3 * 4), dtype=torch.int64)
     out = sc.mask_sources(staged, np.array([False, True, False]), 4, 21)

@@ -1,7 +1,7 @@
 """Scenarios of the ShardedCounter parity tests (tests/test_shard_count.py
 and tests/test_sharded_counter.py mirrored), shared by the JAX reference
-in the test process and the port's gloo ranks, which import this module
-and no JAX.
+in the test process, the port's gloo ranks, which import this module
+and no JAX, and the port's members of one process (LocalGroup).
 
 A scenario's input is a list of steps, each the (n * chunk,) uint8 codes
 of n sources; source s's chunk is codes[s * chunk:(s + 1) * chunk]."""
@@ -59,40 +59,47 @@ def step_codes(name, n):
     return out
 
 
-def rank_scenarios(rank, n, out_dir, names):
-    """Rank `rank` of n runs every named scenario through the port's
-    ShardedCounter on the CPU and writes what it finalized
-    (<out_dir>/<name>_r<rank>.npz and .json)."""
+def run_scenario(name, n, rank, out_dir, group=None):
+    """Rank `rank` of n runs the named scenario through the port's
+    ShardedCounter on the CPU: over `group` (a LocalGroup member) or, by
+    default, the default torch.distributed group.  -> (result dict,
+    arrays of its finalized parts)."""
     from meryl_tpu_torch.parallel.shard_count import ShardedCounter
+    k, mode, chunk, _, acc_cap, spill, _, _ = SCENARIOS[name]
+    spill_dir = os.path.join(out_dir, f"{name}_spill_r{rank}") \
+        if spill else None
+    res = {"error": None}
+    arrays = {}
+    try:
+        sc = ShardedCounter(k, chunk_len=chunk, mode=mode, acc_cap=acc_cap,
+                            spill_dir=spill_dir, device="cpu", group=group)
+        for codes in step_codes(name, n):
+            sc.add_codes(codes[rank * chunk:(rank + 1) * chunk])
+        parts = sc.finalize_parts()
+        res["rows"] = [int(p[0]) for p in parts]
+        for i, (_, hi, lo, c) in enumerate(parts):
+            arrays.update({f"hi{i}": hi, f"lo{i}": lo, f"c{i}": c})
+        res["stats"] = dict(sc.stats)
+        res["masked_steps"] = sc.masked_steps
+        res["spill_files"] = sorted(os.listdir(spill_dir)) \
+            if spill_dir and os.path.isdir(spill_dir) else []
+        again = []
+        for fn in (sc.finalize, sc.finalize_parts):
+            try:
+                fn()
+            except RuntimeError as e:
+                again.append(str(e))
+        res["again"] = again
+    except RuntimeError as e:
+        res["error"] = str(e)
+    return res, arrays
+
+
+def rank_scenarios(rank, n, out_dir, names):
+    """Rank `rank` of n runs every named scenario (run_scenario) and
+    writes what it finalized (<out_dir>/<name>_r<rank>.npz and .json)."""
     for name in names:
-        k, mode, chunk, _, acc_cap, spill, _, _ = SCENARIOS[name]
-        spill_dir = os.path.join(out_dir, f"{name}_spill_r{rank}") \
-            if spill else None
-        res = {"error": None}
-        arrays = {}
-        try:
-            sc = ShardedCounter(k, chunk_len=chunk, mode=mode,
-                                acc_cap=acc_cap, spill_dir=spill_dir,
-                                device="cpu")
-            for codes in step_codes(name, n):
-                sc.add_codes(codes[rank * chunk:(rank + 1) * chunk])
-            parts = sc.finalize_parts()
-            res["rows"] = [int(p[0]) for p in parts]
-            for i, (_, hi, lo, c) in enumerate(parts):
-                arrays.update({f"hi{i}": hi, f"lo{i}": lo, f"c{i}": c})
-            res["stats"] = dict(sc.stats)
-            res["masked_steps"] = sc.masked_steps
-            res["spill_files"] = sorted(os.listdir(spill_dir)) \
-                if spill_dir and os.path.isdir(spill_dir) else []
-            again = []
-            for fn in (sc.finalize, sc.finalize_parts):
-                try:
-                    fn()
-                except RuntimeError as e:
-                    again.append(str(e))
-            res["again"] = again
-        except RuntimeError as e:
-            res["error"] = str(e)
+        res, arrays = run_scenario(name, n, rank, out_dir)
         np.savez(os.path.join(out_dir, f"{name}_r{rank}.npz"), **arrays)
         with open(os.path.join(out_dir, f"{name}_r{rank}.json"), "w") as f:
             json.dump(res, f)
