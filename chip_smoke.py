@@ -104,6 +104,16 @@ Phases, each printing its lines; any failure exits non-zero:
      MERYL_TPU_SHARDED=1 count over every visible card (equal DB); and
      the in-process dryrun_multichip(1, "cuda") and dryrun_devices over
      the 4 members, each walking the three hatches
+ 18. a job's process of several devices (after 17):
+     count_to_db_multihost of phase 6's FASTQ over a JobGroup of 4
+     members on cuda:0 in a 1-rank NCCL group (one NCCL rank x 4
+     threads: the machine has one card) at full width, its DB equal to
+     phase 6's, wall and Mbases/s beside phase 6's, the extraction
+     kernel's launches (4 members x the steps), the peak device memory
+     and the hatch stats; the same count with the route, the two-level
+     exchange's local gather, NCCL all_to_all_single and local scatter,
+     and the owner merge timed a call; and dryrun_devices over the same
+     group (job=True), walking the three hatches
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs CUDA; imports no JAX.
 """
@@ -148,6 +158,7 @@ def phase_env(torch):
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
     print(f"nvidia-smi: {smi}")
+    return smi
 
 
 def phase_build(kernel_modules, native):
@@ -2055,6 +2066,108 @@ def phase_local_sharded(torch, cli, counter, accum, extract_cuda, MerylDB,
     return launches
 
 
+JOB_MEMBERS = 4    # phase 18's members of the one process, on cuda:0
+
+
+def phase_job_hybrid(torch, accum, extract_cuda, MerylDB, fq, db_a, bases,
+                     wall6, card, workdir):
+    """A job's process of several devices (phase 18): (a)
+    count_to_db_multihost of phase 6's FASTQ over a JobGroup of
+    JOB_MEMBERS members on cuda:0 (one thread each) in a 1-rank NCCL
+    group (the machine has one card, and the launcher refuses P x D
+    past it), at full width (2^22 bases a member a step), its DB equal
+    to phase 6's; then count_to_arrays_multihost over the same group
+    with the route, the two-level exchange's local gather, NCCL
+    all_to_all_single and local scatter, and the owner merge timed a
+    call (the card synchronized around each; the members share cuda:0's
+    stream, so a call holds what the other members queued meanwhile);
+    (b) dryrun_devices over the same group (job=True), walking the three
+    hatches.  -> the extraction kernel's launches in (a)."""
+    import torch.distributed as dist
+
+    from meryl_tpu_torch.parallel import dryrun, local_group, multihost
+    from meryl_tpu_torch.parallel import shard_count
+    t_phase = time.perf_counter()
+    n = JOB_MEMBERS
+    devices = ["cuda:0"] * n
+    g = shard_count.plan_shard_route(CHUNK, 21, n)
+    for key in ("MERYL_TPU_CHUNK", "MERYL_TPU_SHARD_CHUNK"):
+        os.environ.pop(key, None)
+    db_j = os.path.join(workdir, "job_hybrid.meryl")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    extract_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with shard_count.one_rank_group("cuda"):
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"1-rank group on {dist.get_backend()}")
+        multihost.count_to_db_multihost([fq], db_j, 21, device="cuda",
+                                        devices=devices)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = extract_cuda.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(shard_count.LAST_SHARD_STATS)
+    if dist.is_initialized():
+        raise AssertionError("the job's 1-rank group outlived the count")
+    if not _same_db(MerylDB, db_j, db_a):
+        raise AssertionError("the job's DB differs from phase 6's DB")
+    if os.path.exists(db_j + multihost.PART_DIR_SUFFIX):
+        raise AssertionError("the job's parts directory was left behind")
+    if not (stats["steps"] >= 1 and launches >= n * stats["steps"]):
+        raise AssertionError(f"extract launches {launches} < {n} members "
+                             f"x {stats['steps']} steps")
+    shutil.rmtree(db_j, ignore_errors=True)
+    print(f"job of 1 NCCL rank x {n} members on cuda:0 "
+          f"(count_to_db_multihost, a JobGroup): {bases} bases, "
+          f"{bases / wall / 1e6:.3f} Mbases/s ({wall:.3f} s wall incl. parts "
+          f"and DB write) against phase 6's {bases / wall6 / 1e6:.3f} "
+          f"Mbases/s ({wall6:.3f} s) in this run; DB equal to phase 6's (so "
+          f"to the brute force); LAST_SHARD_STATS {json.dumps(stats)}; "
+          f"extract LAUNCHES {launches} (= {n} members x {stats['steps']} "
+          f"steps + {launches - n * stats['steps']} recount launches); "
+          f"max_memory_allocated {peak} B; geometry B={g['B']} "
+          f"rpo={g['rpo']} R0={g['R0']} L0={g['L0']} c={g['c']} "
+          f"Wc={g['Wc']}; {card}")
+
+    want = MerylDB.open(db_a).load_all()
+    Member = local_group.JobMember
+    spots = [(accum, "route_chunk_packed", "route"),
+             (Member, "_gather", "gather"),
+             (Member, "_procs_all_to_all", "nccl_all_to_all"),
+             (Member, "_scatter", "scatter"),
+             (shard_count, "routed_merge", "merge")]
+    with _call_clock(torch, spots) as calls, \
+            shard_count.one_rank_group("cuda"):
+        parts = multihost.count_to_arrays_multihost(
+            [fq], 21, device="cuda", devices=devices)
+    got = [np.concatenate([p[i] for p in parts]) for i in (1, 2, 3)]
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("the timed job count differs from phase 6's DB")
+    ms = {name: [t * 1e3 for t in v] for name, v in calls.items()}
+    if not all(ms.values()):
+        raise AssertionError(f"a layer of the job's step never ran: "
+                             f"{ {k: len(v) for k, v in ms.items()} }")
+    print(f"job layers (ms a call, card synchronized around each, {n} "
+          f"members, {shard_count.LAST_SHARD_STATS['steps']} steps; "
+          f"{card}): " + "; ".join(
+              f"{name} {len(v)} calls, median {float(np.median(v)):.3f}, "
+              f"max {max(v):.3f}, total {sum(v):.3f}"
+              for name, v in ms.items()))
+    grid = n * g["B"] * g["Wc"] * 8
+    med = float(np.median(ms["nccl_all_to_all"]))
+    print(f"job exchange: leader's send buffer {grid} B a step; NCCL "
+          f"all_to_all_single median {med:.3f} ms, "
+          f"{grid / med / 1e6:.2f} GB/s (1 rank: NCCL's copy to itself); "
+          f"{card}")
+
+    dryrun.dryrun_devices(devices, job=True)
+    if dist.is_initialized():
+        raise AssertionError("the job dryrun's group outlived it")
+    print(f"job phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2073,7 +2186,7 @@ def main():
     from meryl_tpu_torch.v2 import cli as v2cli
     from meryl_tpu_torch.v2 import engine
 
-    phase_env(torch)
+    card = phase_env(torch)
     phase_build({"extract.cu": extract_cuda, "rowsort.cu": rowsort}, native)
     max_err, ext_t = phase_kernel_parity(torch, ext, extract_cuda,
                                          ab_extract)
@@ -2110,6 +2223,9 @@ def main():
         local_ext = phase_local_sharded(
             torch, cli, counter, accum, extract_cuda, MerylDB, fq, db_a,
             int(reads.size), wall6, workdir)
+        job_ext = phase_job_hybrid(torch, accum, extract_cuda, MerylDB, fq,
+                                   db_a, int(reads.size), wall6, card,
+                                   workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     probe = "scripts/probe_r4_pallas_sort.py"
@@ -2125,6 +2241,7 @@ def main():
          "launches_batched": batched_ext, "launches_lookup": lookup_launches,
          "launches_meryl2": m2_ext, "launches_sharded": sharded_ext,
          "launches_local_sharded": local_ext,
+         "launches_job_hybrid": job_ext,
          "path": "count", "shape": f"{CHUNK} codes k=21 canonical"},
         {"name": "rowsort_bitonic_keys", "route": "cuda",
          "source": "meryl_tpu_torch/csrc/rowsort.cu",

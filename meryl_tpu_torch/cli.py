@@ -29,10 +29,11 @@ the counting plan and the predicted multi-GPU scaling table
 GPUs, plain `count` uses every visible card from this one process (the
 sharded path, one thread a card; MERYL_TPU_SHARDED=0 turns it off, =1
 forces it on one card, and with device=cpu MERYL_TPU_LOCAL_DEVICES=n
-runs n members on the CPU).  Several processes count as a job of ranks,
-one process and one card each:
-`python -m meryl_tpu_torch.parallel.launch --nprocs N -- count ...`
-(environment MERYL_TPU_COORD, counter.py routes it).
+runs n members on the CPU).  Several processes count as a job, each
+with one card or D cards:
+`python -m meryl_tpu_torch.parallel.launch --nprocs N
+[--devices-per-proc D] -- count ...` (environment MERYL_TPU_COORD,
+counter.py routes it).
 """
 
 from __future__ import annotations

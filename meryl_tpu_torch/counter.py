@@ -16,9 +16,10 @@ written as a partial DB with a resume manifest, and union-sums them
 Several GPUs: one process counts over every card it sees on the
 sharded path (parallel/shard_count.py, one thread a card: on by default
 on a host with several cards, MERYL_TPU_SHARDED=1 forces it,
-MERYL_TPU_LOCAL_DEVICES=n members on the CPU); a job of ranks started by
-parallel/launch.py (one process and one device a rank,
-MERYL_TPU_COORD) runs the same step through parallel/multihost.py.
+MERYL_TPU_LOCAL_DEVICES=n members on the CPU); a job of processes
+started by parallel/launch.py (MERYL_TPU_COORD; one device a process,
+or --devices-per-proc D, one thread a device) runs the same step
+through parallel/multihost.py.
 
 The host modules (kmer, db, io.sequence, native) are the port's own
 copies of meryl_tpu's; nothing here imports JAX or meryl_tpu.
@@ -1015,9 +1016,10 @@ def _in_job() -> bool:
 def _use_sharded(count_suffix, device) -> bool:
     """Whether counting runs the sharded path (meryl_tpu/counter.py
     _use_sharded): MERYL_TPU_SHARDED=1 forces it, 0 turns it off, and
-    auto (the default) is on when device is cuda, this process is in no
-    launcher job and it sees more than one card.  A count-suffix is not
-    part of the routed step and is never sharded."""
+    auto (the default) is on when device is cuda and this process has
+    more than one card: every card it sees, or in a launcher job its
+    MERYL_TPU_LOCAL_DEVICES.  A count-suffix is not part of the routed
+    step and is never sharded."""
     if count_suffix is not None:
         return False
     env = _os.environ.get("MERYL_TPU_SHARDED", "auto")
@@ -1025,8 +1027,12 @@ def _use_sharded(count_suffix, device) -> bool:
         return False
     if env == "1":
         return True
-    return torch.device(device).type == "cuda" and not _in_job() and \
-        torch.cuda.is_available() and torch.cuda.device_count() > 1
+    if torch.device(device).type != "cuda" or not torch.cuda.is_available():
+        return False
+    if _in_job():
+        from .parallel import multihost as mh
+        return mh.local_device_count() > 1
+    return torch.cuda.device_count() > 1
 
 
 def shard_devices(device) -> list:
@@ -1091,69 +1097,99 @@ class _Dealer:
 @contextlib.contextmanager
 def _shard_group(device, devices):
     """The group of a sharded count in this process: a LocalGroup over
-    `devices` (default shard_devices(device)); inside a launcher job
-    (or a group the caller made) this process's rank, one device, as a
-    DistGroup (a 1-rank group is made here when the job has none)."""
-    from .parallel.local_group import DistGroup, LocalGroup
+    `devices` (default shard_devices(device)); inside a launcher job (or
+    a group the caller made) this process's part of the job, over its
+    MERYL_TPU_LOCAL_DEVICES devices (multihost.job_group; a 1-rank group
+    is made here when the job has none)."""
+    import torch.distributed as dist
+
+    from .parallel import multihost as mh
+    from .parallel.local_group import LocalGroup
     from .parallel.shard_count import one_rank_group
     if devices is not None or not _in_job():
         yield LocalGroup(shard_devices(device) if devices is None
                          else devices)
         return
-    with one_rank_group(device):
-        group = DistGroup(device)
-        if group.size != 1:
+    devs = mh.local_devices(device)
+    with one_rank_group(devs[0]):
+        if dist.get_world_size() != 1:
             raise ValueError(
-                f"a job of {group.size} ranks counts through count_to_db "
-                f"(each rank reads its own segment), not "
-                f"count_to_arrays_sharded")
-        yield group
+                f"a job of {dist.get_world_size()} processes counts "
+                f"through count_to_db (each process reads its own "
+                f"segment), not count_to_arrays_sharded")
+        yield mh.job_group(devs)
+
+
+def _count_members(group, paths, k: int, *, mode: str, hpc: bool,
+                   chunk_len: int, progress, segment,
+                   spill_dir: str | None = None, lockstep: bool = False,
+                   **shard_kw):
+    """Count `segment` of the input over this process's members of
+    `group`: one reader, whose chunks a _Dealer deals out one a member a
+    step (the reference's _feed_sharded), one ShardedCounter a member,
+    settled at the end.  -> (the members' counters in member order,
+    their owner_parts remaining; the bases read); LAST_SHARD_STATS is
+    written.  With spill_dir, member r spills to spill_dir/m<r>.
+    lockstep: the processes of a job read segments of their own, so a
+    member whose process has no chunk left feeds the empty chunk (the
+    keep-alive pad) until no member of the job has one (one all_reduce
+    MIN over the group a step), and the collectives stay in step."""
+    import functools
+
+    from .parallel import shard_count as shc
+    from .parallel.local_group import MIN
+
+    if any(m.device.type == "cuda" for m in group.members):
+        extract_cuda.build()  # once, before any member thread
+    from . import native
+    native.get_lib()
+    chunks = _prefetch_chunks(
+        SequenceChunker(paths, k, chunk_len, hpc=hpc, segment=segment),
+        depth=max(4, 2 * len(group.members)),
+        transform=functools.partial(prepack, chunk_len=chunk_len))
+    pad = prepack(np.zeros(0, np.uint8), chunk_len)
+    dealer = _Dealer(chunks, len(group.members), pad, progress)
+
+    def member(m):
+        sc = shc.ShardedCounter(
+            k, chunk_len=chunk_len, mode=mode, group=m,
+            spill_dir=None if spill_dir is None
+            else _os.path.join(spill_dir, f"m{m.rank}"), **shard_kw)
+        step = 0
+        while True:
+            chunk = dealer.take(step, m.local)
+            if lockstep:
+                done = torch.tensor([int(chunk is None)], dtype=torch.int64,
+                                    device=m.device)
+                m.all_reduce(done, MIN)
+                if done.item():
+                    break
+            elif chunk is None:
+                break
+            sc.add_codes(pad if chunk is None else chunk)
+            step += 1
+        sc.settle()
+        return sc
+
+    try:
+        counters = group.run(member)
+    finally:
+        chunks.close()
+    shc.publish_stats(counters)
+    return counters, dealer.nbases
 
 
 def _count_sharded(paths, k: int, *, mode: str, hpc: bool, chunk_len,
                    progress, segment, device, devices=None,
                    spill_dir: str | None = None, **shard_kw):
-    """Count the whole input on the sharded path: one reader, one
-    ShardedCounter a member of the group (_shard_group), every member
-    fed one chunk a step (the reference's _feed_sharded).  -> the
-    members' counters in member order, settled (their owner_parts
-    remain); LAST_SHARD_STATS is written.  With spill_dir, member r
-    spills to spill_dir/m<r>."""
-    import functools
-
-    from .parallel import shard_count as shc
-
-    chunk_len = chunk_len or shard_default_chunk()
+    """Count the whole input on the sharded path over this process's
+    group (_shard_group).  -> the members' counters (_count_members)."""
     with _shard_group(device, devices) as group:
-        if any(m.device.type == "cuda" for m in group.members):
-            extract_cuda.build()  # once, before any member thread
-        from . import native
-        native.get_lib()
-        chunks = _prefetch_chunks(
-            SequenceChunker(paths, k, chunk_len, hpc=hpc, segment=segment),
-            depth=max(4, 2 * group.size),
-            transform=functools.partial(prepack, chunk_len=chunk_len))
-        dealer = _Dealer(chunks, group.size,
-                         prepack(np.zeros(0, np.uint8), chunk_len), progress)
-
-        def member(m):
-            sc = shc.ShardedCounter(
-                k, chunk_len=chunk_len, mode=mode, group=m,
-                spill_dir=None if spill_dir is None
-                else _os.path.join(spill_dir, f"m{m.rank}"), **shard_kw)
-            step = 0
-            while (chunk := dealer.take(step, m.rank)) is not None:
-                sc.add_codes(chunk)
-                step += 1
-            sc.settle()
-            return sc
-
-        try:
-            counters = group.run(member)
-        finally:
-            chunks.close()
-    shc.publish_stats(counters)
-    return counters
+        return _count_members(
+            group, paths, k, mode=mode, hpc=hpc,
+            chunk_len=chunk_len or shard_default_chunk(),
+            progress=progress, segment=segment, spill_dir=spill_dir,
+            **shard_kw)[0]
 
 
 def count_to_arrays_sharded(paths, k: int, mode: str = "canonical",
@@ -1253,7 +1289,8 @@ def count_to_db(paths, out_path: str, k: int, mode: str = "canonical",
             mh.init_from_env(device)
         return mh.count_to_db_multihost(paths, out_path, k, mode=mode,
                                         hpc=hpc, chunk_len=chunk_len,
-                                        progress=progress, device=device)
+                                        progress=progress, device=device,
+                                        memory_gb=memory_gb)
     if memory_gb is not None and count_suffix is None:
         plan = configure_counting(paths, k, memory_gb, chunk_len,
                                   device=device)

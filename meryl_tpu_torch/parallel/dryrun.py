@@ -1,7 +1,7 @@
 """Dryrun of multi-GPU counting through the product CLI (counterpart of
 __graft_entry__.dryrun_multichip / _dryrun_body).
 
-    python -m meryl_tpu_torch.parallel.dryrun N [cuda|cpu] [job]
+    python -m meryl_tpu_torch.parallel.dryrun N [cuda|cpu] [job [D]]
 
 `meryl-torch count` runs sharded over N members and again on one
 device, and the two DBs must decode equal: first on a happy-path input,
@@ -15,11 +15,14 @@ summed over the members.
 By default the sharded count runs in this process, as the reference's
 does (MERYL_TPU_SHARDED=1): on cpu over MERYL_TPU_LOCAL_DEVICES=N
 members, on cuda over every visible card (N may not pass their count).
-`job` runs it as a launcher job of N ranks instead (parallel/launch.py,
-one device each: on cuda that needs N cards), or at N = 1 as a 1-rank
-torch.distributed group in this process (NCCL on cuda).
+`job` runs it as a launcher job of N processes instead
+(parallel/launch.py) with D devices each (default 1; on cuda that needs
+N * D cards), or at N = 1 in this process over a 1-rank
+torch.distributed group (NCCL on cuda): its rank alone, or D members.
 dryrun_devices(devices) runs the same scenarios through
-counter.count_to_arrays_sharded(devices=), where devices may repeat.
+counter.count_to_arrays_sharded(devices=), where devices may repeat;
+with job=True through multihost.count_to_db_multihost(devices=) in a
+1-rank group: the two-level group of a job's process.
 """
 
 from __future__ import annotations
@@ -69,34 +72,54 @@ def _sharded_in_process(cli, n, device):
     return run
 
 
-def _sharded_job(cli, n, device):
-    """The CLI's sharded count as n ranks of a torch.distributed group:
-    a 1-rank group in this process, or a launcher job."""
+def _sharded_job(cli, n, device, per):
+    """The CLI's sharded count as n processes of a torch.distributed
+    group with `per` devices each: a 1-rank group in this process, or a
+    launcher job."""
     from . import shard_count as sc
 
     def run(fa, db, env, tag):
         argv = ["count", "k=21", fa, "output", db, f"device={device}"]
         if n == 1:
             with sc.one_rank_group(device):
-                _cli_count(cli, argv, dict(env, MERYL_TPU_SHARDED="1"), tag)
+                _cli_count(cli, argv, dict(
+                    env, MERYL_TPU_SHARDED="1",
+                    MERYL_TPU_LOCAL_DEVICES=str(per)), tag)
             return dict(sc.LAST_SHARD_STATS)
-        # a launcher job: its ranks chunk by MERYL_TPU_CHUNK and write
-        # their hatch counters to MERYL_TPU_MH_DEBUG
+        # a launcher job: its processes chunk by MERYL_TPU_CHUNK and
+        # write their members' hatch counters to MERYL_TPU_MH_DEBUG
         from .launch import main as launch
         dbg = os.path.join(os.path.dirname(db), f"ranks_{tag}")
         renv = dict(env, MERYL_TPU_CHUNK=env["MERYL_TPU_SHARD_CHUNK"],
                     MERYL_TPU_MH_DEBUG=dbg)
         rc = _with_env(renv, lambda: launch(
-            ["--nprocs", str(n), "--"] + argv))
+            ["--nprocs", str(n), "--devices-per-proc", str(per), "--"]
+            + argv))
         if rc != 0:
-            raise AssertionError(f"{n}-rank CLI count exited {rc} ({tag})")
-        ranks = []
+            raise AssertionError(f"{n}-process CLI count exited {rc} "
+                                 f"({tag})")
+        procs = []
         for fn in sorted(os.listdir(dbg)):
             with open(os.path.join(dbg, fn)) as f:
-                ranks.append(json.load(f)["shard_stats"])
-        if len(ranks) != n:
-            raise AssertionError(f"{len(ranks)} of {n} ranks reported")
-        return sc.combine_stats(ranks)
+                procs.append(json.load(f)["shard_stats"])
+        if len(procs) != n:
+            raise AssertionError(f"{len(procs)} of {n} processes reported")
+        return sc.combine_stats(procs)
+    return run
+
+
+def _sharded_job_api(devices):
+    """multihost.count_to_db_multihost over `devices` in a 1-rank group
+    (the job's chunk is MERYL_TPU_CHUNK)."""
+    from . import multihost
+    from . import shard_count as sc
+
+    def run(fa, db, env, tag):
+        with sc.one_rank_group(devices[0]):
+            _with_env(dict(env, MERYL_TPU_CHUNK=env["MERYL_TPU_SHARD_CHUNK"]),
+                      lambda: multihost.count_to_db_multihost(
+                          [fa], db, 21, device=devices[0], devices=devices))
+        return dict(sc.LAST_SHARD_STATS)
     return run
 
 
@@ -189,18 +212,21 @@ def _walk(sharded, n, device, what):
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda",
-                     job: bool = False) -> dict:
+                     job: bool = False, devices_per_proc: int = 1) -> dict:
     """Drive `meryl-torch count` sharded over n_devices members against
     the single-device count; -> the hatch scenario's stats (summed over
     the members).  In this process by default; job=True as n_devices
-    ranks of a torch.distributed group.  Raises when a DB differs or a
-    hatch was not walked."""
+    processes of a torch.distributed group, each with devices_per_proc
+    devices.  Raises when a DB differs or a hatch was not walked."""
     from .. import cli, resolve_device
 
     dev = resolve_device(device)
     if job:
-        return _walk(_sharded_job(cli, n_devices, device), n_devices,
-                     device, f"{n_devices} ranks of a job on {dev.type}")
+        per = devices_per_proc
+        return _walk(_sharded_job(cli, n_devices, device, per),
+                     n_devices * per, device,
+                     f"{n_devices} processes x {per} devices of a job on "
+                     f"{dev.type}")
     if dev.type == "cuda":
         import torch
         have = torch.cuda.device_count()
@@ -213,18 +239,25 @@ def dryrun_multichip(n_devices: int, device: str = "cuda",
                  f"{dev.type}")
 
 
-def dryrun_devices(devices) -> dict:
+def dryrun_devices(devices, job: bool = False) -> dict:
     """The dryrun's scenarios through count_to_arrays_sharded over
-    `devices` (which may repeat), against the single-device CLI count
-    on the first device's type; -> the hatch scenario's stats."""
+    `devices` (which may repeat), or with job=True through
+    count_to_db_multihost(devices=) in a 1-rank group, against the
+    single-device CLI count on the first device's type; -> the hatch
+    scenario's stats."""
     import torch
     devs = [torch.device(d) for d in devices]
-    return _walk(_sharded_api(devs), len(devs), devs[0].type,
+    what = "count_to_db_multihost in a 1-rank group" if job \
+        else "count_to_arrays_sharded"
+    return _walk(_sharded_job_api(devs) if job else _sharded_api(devs),
+                 len(devs), devs[0].type,
                  f"{len(devs)} members over {sorted({str(d) for d in devs})}"
-                 f" through count_to_arrays_sharded")
+                 f" through {what}")
 
 
 if __name__ == "__main__":
     dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 1,
                      sys.argv[2] if len(sys.argv) > 2 else "cuda",
-                     job=sys.argv[3:4] == ["job"])
+                     job=sys.argv[3:4] == ["job"],
+                     devices_per_proc=int(sys.argv[4])
+                     if len(sys.argv) > 4 else 1)

@@ -1,21 +1,22 @@
-"""Multi-process launcher: run the meryl-torch CLI as one job of N
-ranks on this machine, one process and one device a rank (counterpart
-of meryl_tpu/parallel/launch.py).
+"""Multi-process launcher: run the meryl-torch CLI as one job of P
+processes on this machine, each with D devices (counterpart of
+meryl_tpu/parallel/launch.py).
 
-    python -m meryl_tpu_torch.parallel.launch --nprocs 2 -- \\
-        count k=21 reads.fa output out.meryl [device=cpu]
+    python -m meryl_tpu_torch.parallel.launch --nprocs 2 \\
+        [--devices-per-proc 4] -- count k=21 reads.fa output out.meryl \\
+        [device=cpu]
 
-Every rank runs the same CLI argv; `count` sees the job
-(MERYL_TPU_COORD / MERYL_TPU_NPROCS / MERYL_TPU_PROCID) and counts
-through parallel/multihost.py.  On cuda (the default) each rank takes
-its own card, and --nprocs may not pass torch.cuda.device_count(): a
-card is never shared and the job never runs gloo instead; device=cpu
-runs gloo ranks on the CPU.  --devices-per-proc is accepted only as 1:
-several cards of one process count without the launcher (plain `count`
-on a host with several cards, counter.py's one-process sharded path).
-When one rank exits with an error, the launcher ends the others.  On
-several machines, run each rank with the three variables set directly,
-MERYL_TPU_COORD pointing at rank 0.
+Every process runs the same CLI argv; `count` sees the job
+(MERYL_TPU_COORD / MERYL_TPU_NPROCS / MERYL_TPU_PROCID, and
+MERYL_TPU_LOCAL_DEVICES=D from --devices-per-proc) and counts through
+parallel/multihost.py: D members a process, one thread each.  On cuda
+(the default) every member takes a card of its own, and P * D may not
+pass torch.cuda.device_count(): a card is never shared between
+processes and the job never runs gloo instead; device=cpu runs gloo
+processes on the CPU, each with D CPU members.  When one process exits
+with an error, the launcher ends the others.  On several machines, run
+each process with the variables set directly, MERYL_TPU_COORD pointing
+at process 0.
 """
 
 from __future__ import annotations
@@ -49,9 +50,9 @@ def _device_word(argv) -> str:
 
 
 def _wait_all(procs, poll_s: float = 0.1, grace_s: float = 10.0) -> int:
-    """Wait for every rank; when one exits non-zero, end the others
-    (a rank that stopped alone would leave them waiting in a
-    collective).  -> a failed rank's exit code, else 0."""
+    """Wait for every process; when one exits non-zero, end the others
+    (a process that stopped alone would leave them waiting in a
+    collective).  -> a failed process's exit code, else 0."""
     live = list(procs)
     while live:
         live = [p for p in live if p.poll() is None]
@@ -75,20 +76,13 @@ def _wait_all(procs, poll_s: float = 0.1, grace_s: float = 10.0) -> int:
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     nprocs = 2
+    dev_per_proc = None
     while argv and argv[0].startswith("--"):
         if argv[0] == "--nprocs":
             nprocs = int(argv[1])
             argv = argv[2:]
         elif argv[0] == "--devices-per-proc":
-            if int(argv[1]) != 1:
-                sys.stderr.write(
-                    "--devices-per-proc: a rank of a meryl_tpu_torch job "
-                    "has one device; start more ranks with --nprocs, or "
-                    "count without the launcher, where one process takes "
-                    "every card it sees (MERYL_TPU_SHARDED); a job of "
-                    "several-device processes is not ported (ROADMAP.md, "
-                    "Not ported)\n")
-                return 2
+            dev_per_proc = int(argv[1])
             argv = argv[2:]
         elif argv[0] == "--":
             argv = argv[1:]
@@ -96,17 +90,20 @@ def main(argv=None) -> int:
         else:
             sys.stderr.write(f"unknown flag {argv[0]}\n")
             return 2
-    if not argv or nprocs < 1:
+    if not argv or nprocs < 1 or (dev_per_proc or 1) < 1:
         sys.stderr.write(__doc__)
         return 2
+    per = dev_per_proc or int(os.environ.get("MERYL_TPU_LOCAL_DEVICES")
+                              or 1)
     if _device_word(argv).startswith("cuda"):
         import torch
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if nprocs > have:
+        if nprocs * per > have:
             sys.stderr.write(
-                f"--nprocs {nprocs}: this machine has {have} CUDA "
-                f"device(s), and a rank takes one card of its own; pass "
-                f"device=cpu to run gloo ranks on the CPU\n")
+                f"--nprocs {nprocs} --devices-per-proc {per}: this machine "
+                f"has {have} CUDA device(s), and each of the job's "
+                f"{nprocs * per} devices takes one card of its own; pass "
+                f"device=cpu to run gloo processes on the CPU\n")
             return 2
 
     port = free_port()
@@ -117,6 +114,8 @@ def main(argv=None) -> int:
         env["MERYL_TPU_COORD"] = f"127.0.0.1:{port}"
         env["MERYL_TPU_NPROCS"] = str(nprocs)
         env["MERYL_TPU_PROCID"] = str(pid)
+        if dev_per_proc:
+            env["MERYL_TPU_LOCAL_DEVICES"] = str(dev_per_proc)
         env["PYTHONPATH"] = ROOT + (os.pathsep + pypath if pypath else "")
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "meryl_tpu_torch"] + argv, env=env,

@@ -1,35 +1,39 @@
-"""Multi-process counting: one rank a process, one device a rank
-(counterpart of meryl_tpu/parallel/multihost.py).
+"""Multi-process counting: the processes of one job, each with one or
+several devices (counterpart of meryl_tpu/parallel/multihost.py).
 
   * every process joins one torch.distributed group (NCCL on cuda,
     gloo when device=cpu is asked for; no fallback from one to the
     other),
-  * each rank reads a disjoint sequence segment of the SAME input (the
-    chunker's sequence-modulo split) and feeds its own chunks,
-  * one ShardedCounter step a rank exchanges k-mers with their owner
-    ranks (parallel/shard_count.py); its decisions come from all-reduced
-    values, so every rank takes them alike,
-  * each rank writes its owner range as a sorted part file; rank 0
-    assembles the 64-bucket DB (histogram and statistics from the final
-    merged counts).
+  * each process reads a disjoint sequence segment of the SAME input
+    (the chunker's sequence-modulo split) and deals its chunks to its
+    devices' members (counter._Dealer),
+  * one ShardedCounter step a member exchanges k-mers with their owner
+    members (parallel/shard_count.py) over the job's group: a DistGroup
+    when a process has one device, else a JobGroup of P processes x D
+    devices (parallel/local_group.py); its decisions come from
+    all-reduced values, so every member takes them alike,
+  * each process writes its members' owner ranges as sorted part files;
+    process 0 assembles the 64-bucket DB (histogram and statistics from
+    the final merged counts).
 
-Lockstep: every rank makes the same collective calls the same number of
-times.  A rank whose segment is exhausted keeps feeding empty chunks
-(the keep-alive pad) until every rank is done (one all_reduce MIN a
-step), so the collectives never deadlock.
+Lockstep: every member makes the same collective calls the same number
+of times.  A process whose segment is exhausted keeps feeding empty
+chunks (the keep-alive pad) until every process is done (one all_reduce
+MIN over the group a step), so the collectives never deadlock.
 
 Environment contract (parallel/launch.py sets it):
-  MERYL_TPU_COORD    rendezvous address host:port (rank 0 listens)
-  MERYL_TPU_NPROCS   number of processes
-  MERYL_TPU_PROCID   this process's rank (0-based); on cuda it takes
-                     cuda:{PROCID % device_count}
-A rank is one device.  MERYL_TPU_LOCAL_DEVICES (the reference's virtual
-CPU devices a process) is refused in a job: several devices of one
-process count on the one-process path (MERYL_TPU_SHARDED=1 count,
-counter.count_to_arrays_sharded(devices=)), and a job of such processes
-is not ported (ROADMAP.md, "Not ported").
-MERYL_TPU_MH_DEBUG=DIR writes each rank's read volume and hatch counters
-(LAST_SHARD_STATS) to DIR/mh_read_bases_proc{rank}.json.
+  MERYL_TPU_COORD          rendezvous address host:port (process 0
+                           listens)
+  MERYL_TPU_NPROCS         number of processes
+  MERYL_TPU_PROCID         this process's index (0-based)
+  MERYL_TPU_LOCAL_DEVICES  devices a process, D (default 1): on cpu D
+                           members, on cuda cards [p * D, (p + 1) * D)
+                           of those the process sees (modulo their
+                           count, as one card a process takes card
+                           PROCID % device_count)
+MERYL_TPU_MH_DEBUG=DIR writes each process's read volume and its
+members' hatch counters (LAST_SHARD_STATS) to
+DIR/mh_read_bases_proc{p}.json.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .local_group import GROUP_TIMEOUT, backend_for, rank_device
+from .local_group import (GROUP_TIMEOUT, DistGroup, JobGroup, _dist_barrier,
+                          backend_for, rank_device)
 
 PART_DIR_SUFFIX = ".mhparts"
 
@@ -51,26 +56,66 @@ def env_requested() -> bool:
     return "MERYL_TPU_COORD" in os.environ
 
 
-def init_from_env(device="cuda") -> tuple[int, int]:
-    """Join the group that MERYL_TPU_* describe and return (rank,
-    world size).  Idempotent.  On cuda the rank's card is chosen before
-    the group is made."""
-    if os.environ.get("MERYL_TPU_LOCAL_DEVICES"):
+def local_device_count() -> int:
+    """D, the devices of each process of a job (MERYL_TPU_LOCAL_DEVICES,
+    default 1)."""
+    d = int(os.environ.get("MERYL_TPU_LOCAL_DEVICES") or 1)
+    if d < 1:
+        raise ValueError(f"MERYL_TPU_LOCAL_DEVICES must be >= 1, got {d}")
+    return d
+
+
+def _first_card(d: int) -> int:
+    """This process's first card of its d: p * d modulo the cards it
+    sees, which must hold all d (p: the process's rank in the group, or
+    MERYL_TPU_PROCID before the group exists)."""
+    pid = dist.get_rank() if dist.is_initialized() else \
+        int(os.environ.get("MERYL_TPU_PROCID", "0"))
+    have = torch.cuda.device_count()
+    first = pid * d % max(1, have)
+    if first + d > have:
         raise ValueError(
-            "MERYL_TPU_LOCAL_DEVICES in a job has no counterpart in "
-            "meryl_tpu_torch: a rank of a job is one process with one "
-            "device (start more ranks with parallel/launch.py --nprocs); "
-            "several devices of one process count without a job "
-            "(MERYL_TPU_SHARDED=1 count), and a job of such processes is "
-            "not ported (ROADMAP.md, Not ported)")
+            f"process {pid} of a job with MERYL_TPU_LOCAL_DEVICES={d} "
+            f"takes cards {first}..{first + d - 1}; this process sees "
+            f"{have} CUDA device(s)")
+    return first
+
+
+def local_devices(device) -> list:
+    """This process's devices in a job: D = local_device_count(); on
+    cpu D CPU members, on cuda its D cards (_first_card); at D = 1 on
+    cuda, the current card (init_from_env has chosen it)."""
+    d = local_device_count()
+    if d == 1 or torch.device(device).type != "cuda":
+        return [rank_device(device)] * d
+    from .. import resolve_device
+    resolve_device(device)  # raises when CUDA is absent
+    first = _first_card(d)
+    return [torch.device("cuda", first + i) for i in range(d)]
+
+
+def job_group(devices):
+    """This process's part of the job's group over its `devices`: a
+    DistGroup at one device, else a JobGroup (the default group must
+    exist)."""
+    if len(devices) == 1:
+        return DistGroup(devices[0])
+    return JobGroup(devices)
+
+
+def init_from_env(device="cuda") -> tuple[int, int]:
+    """Join the group that MERYL_TPU_* describe and return (process
+    index, process count).  Idempotent.  On cuda the process's first
+    card is made current before the group is made."""
     coord = os.environ["MERYL_TPU_COORD"]
     nprocs = int(os.environ["MERYL_TPU_NPROCS"])
     pid = int(os.environ["MERYL_TPU_PROCID"])
+    d = local_device_count()
     dev = torch.device(device)
     if dev.type == "cuda":
         from .. import resolve_device
         resolve_device(dev)  # raises when CUDA is absent
-        torch.cuda.set_device(pid % torch.cuda.device_count())
+        torch.cuda.set_device(_first_card(d))
     if not dist.is_initialized() and nprocs > 1:
         dist.init_process_group(backend_for(dev),
                                 init_method=f"tcp://{coord}",
@@ -80,79 +125,69 @@ def init_from_env(device="cuda") -> tuple[int, int]:
 
 
 def barrier() -> None:
-    """dist.barrier on this rank's own card when the group is NCCL."""
-    if dist.get_backend() == "nccl":
-        dist.barrier(device_ids=[torch.cuda.current_device()])
-    else:
-        dist.barrier()
+    """dist.barrier on this process's current card when the group is
+    NCCL."""
+    _dist_barrier(torch.cuda.current_device()
+                  if dist.get_backend() == "nccl" else "cpu")
 
 
-def _all_done(local_done: bool, device) -> bool:
-    """True iff every rank's input is exhausted (one all_reduce MIN)."""
-    t = torch.tensor([1 if local_done else 0], dtype=torch.int64,
-                     device=device)
-    dist.all_reduce(t, op=dist.ReduceOp.MIN)
-    return bool(t.item() >= 1)
-
-
-def count_to_arrays_multihost(paths, k: int, mode: str = "canonical",
-                              hpc: bool = False,
-                              chunk_len: int | None = None,
-                              progress=None, device="cuda", **shard_kw):
-    """Distributed counting over the ranks of the default group.
-
-    Returns this rank's owner parts [(row, hi, lo, counts)]; rows ascend
-    with rank, and the ranks' parts in row order are the globally sorted
-    unique (kmer, count) set.  assemble_db builds the DB from them."""
-    from ..counter import _prefetch_chunks, default_chunk
-    from ..io.sequence import SequenceChunker
-    from .shard_count import ShardedCounter, publish_stats
+def _count_job(paths, k: int, *, mode: str, hpc: bool, chunk_len,
+               progress, device, devices, spill_dir, **shard_kw):
+    """Count this process's segment over the job's group.  -> the
+    members' counters, settled, in member order; LAST_SHARD_STATS holds
+    their hatch counters."""
+    from ..counter import _count_members, default_chunk
 
     if not dist.is_initialized():
         raise RuntimeError("count_to_arrays_multihost needs a process "
                            "group (init_from_env)")
     pid, nprocs = dist.get_rank(), dist.get_world_size()
-    sc = ShardedCounter(k, chunk_len=chunk_len or default_chunk(),
-                        mode=mode, device=device, **shard_kw)
-    chunks = iter(_prefetch_chunks(
-        SequenceChunker(paths, k, sc.chunk_len, hpc=hpc,
-                        segment=(pid + 1, nprocs)),
-        depth=4, transform=sc.prepack))
-    pad = sc.prepack(np.zeros(0, np.uint8))
-    exhausted = False
-    nbases = 0
-    while True:
-        chunk = None if exhausted else next(chunks, None)
-        if chunk is None:
-            exhausted = True
-            chunk = pad
-        else:
-            nbases += chunk[4]
-        if _all_done(exhausted, sc.device):
-            break
-        sc.add_codes(chunk)
-        if progress:
-            progress(nbases)
-    parts = sc.finalize_parts()
-    publish_stats([sc])
+    group = job_group(local_devices(device) if devices is None
+                      else [rank_device(d) for d in devices])
+    counters, nbases = _count_members(
+        group, paths, k, mode=mode, hpc=hpc,
+        chunk_len=chunk_len or default_chunk(), progress=progress,
+        # one process reads the whole input
+        segment=None if nprocs == 1 else (pid + 1, nprocs),
+        spill_dir=spill_dir, lockstep=True, **shard_kw)
     dbg_dir = os.environ.get("MERYL_TPU_MH_DEBUG")
     if dbg_dir:
-        # each rank's read volume and hatch counters, one small file a
-        # rank: tests read it to show that the keep-alive pad carried an
-        # uneven split, the dryrun to sum the ranks' hatches
+        # each process's read volume and its members' hatch counters, one
+        # small file a process: tests read it to show that the keep-alive
+        # pad carried an uneven split, the dryrun to sum the hatches
+        from .shard_count import LAST_SHARD_STATS
         os.makedirs(dbg_dir, exist_ok=True)
         with open(os.path.join(dbg_dir, f"mh_read_bases_proc{pid}.json"),
                   "w") as f:
             json.dump({"proc": pid, "read_bases": int(nbases),
-                       "shard_stats": sc.stats}, f)
-    return parts
+                       "shard_stats": dict(LAST_SHARD_STATS)}, f)
+    return counters
+
+
+def count_to_arrays_multihost(paths, k: int, mode: str = "canonical",
+                              hpc: bool = False,
+                              chunk_len: int | None = None,
+                              progress=None, device="cuda", devices=None,
+                              **shard_kw):
+    """Distributed counting over the members of the default group's
+    processes: this process's `devices` (default local_devices(device)).
+
+    Returns this process's owner parts [(row, hi, lo, counts)], row the
+    member's global rank; rows ascend with it, and every process's
+    parts in row order are the globally sorted unique (kmer, count) set.
+    assemble_db builds the DB from them."""
+    counters = _count_job(paths, k, mode=mode, hpc=hpc, chunk_len=chunk_len,
+                          progress=progress, device=device, devices=devices,
+                          spill_dir=None, **shard_kw)
+    return [p for sc in counters for p in sc.owner_parts()]
 
 
 def write_parts(out_path: str, k: int, parts) -> str:
-    """Write this rank's owner parts; returns the parts directory.  Rank
-    0 first removes a parts directory left by an earlier run (its stale
-    proc*.json or part files would be merged in), and every rank waits
-    for that before writing."""
+    """Write this process's owner parts (an iterable: one part in host
+    memory at a time); returns the parts directory.  Process 0 first
+    removes a parts directory left by an earlier run (its stale
+    proc*.json or part files would be merged in), and every process
+    waits for that before writing."""
     pdir = out_path + PART_DIR_SUFFIX
     pid = dist.get_rank()
     if pid == 0 and os.path.isdir(pdir):
@@ -172,10 +207,10 @@ def write_parts(out_path: str, k: int, parts) -> str:
 
 def assemble_db(out_path: str, k: int, *, mode: str = "canonical",
                 hpc: bool = False):
-    """Rank 0 merges every part file (disjoint, in global order by owner
-    row) into the 64-bucket DB; the others wait.  Every rank checks the
-    parts directory, so a stale one fails on every rank alike, and every
-    rank returns only after the DB is complete."""
+    """Process 0 merges every part file (disjoint, in global order by
+    owner row) into the 64-bucket DB; the others wait.  Every process
+    checks the parts directory, so a stale one fails on every process
+    alike, and every process returns only after the DB is complete."""
     from ..db import MerylDB, stream_sorted_parts
 
     barrier()
@@ -218,11 +253,35 @@ def assemble_db(out_path: str, k: int, *, mode: str = "canonical",
 def count_to_db_multihost(paths, out_path: str, k: int,
                           mode: str = "canonical", hpc: bool = False,
                           chunk_len: int | None = None, progress=None,
-                          device="cuda", **shard_kw):
-    """The multi-process count: distributed count -> one part file a
-    rank -> rank 0 assembles the DB."""
-    parts = count_to_arrays_multihost(
-        paths, k, mode=mode, hpc=hpc, chunk_len=chunk_len,
-        progress=progress, device=rank_device(device), **shard_kw)
-    write_parts(out_path, k, parts)
-    return assemble_db(out_path, k, mode=mode, hpc=hpc)
+                          device="cuda", devices=None,
+                          memory_gb: float | None = None, **shard_kw):
+    """The multi-process count: distributed count over this process's
+    `devices` (default local_devices(device); the counterpart of
+    count_to_arrays_sharded(devices=)) -> one part file a member -> process
+    0 assembles the DB.  When memory_gb is given and the plan
+    (counter.configure_counting) splits the count, every member's
+    accumulator spills to disk (`<out>.spills/m<rank>`, removed at the
+    end) and each process writes its parts one owner at a time."""
+    from ..counter import configure_counting
+
+    spill_root = None
+    if memory_gb is not None and configure_counting(
+            paths, k, memory_gb, chunk_len, device=device)["batches"] > 1:
+        spill_root = out_path + ".spills"
+    try:
+        counters = _count_job(
+            paths, k, mode=mode, hpc=hpc, chunk_len=chunk_len,
+            progress=progress, device=device, devices=devices,
+            spill_dir=spill_root, **shard_kw)
+        write_parts(out_path, k, (p for sc in counters
+                                  for p in sc.owner_parts()))
+    finally:
+        if spill_root is not None:  # this process's members' spills
+            d = local_device_count() if devices is None else len(devices)
+            for r in range(dist.get_rank() * d, (dist.get_rank() + 1) * d):
+                shutil.rmtree(os.path.join(spill_root, f"m{r}"),
+                              ignore_errors=True)
+    db = assemble_db(out_path, k, mode=mode, hpc=hpc)
+    if spill_root is not None and dist.get_rank() == 0:
+        shutil.rmtree(spill_root, ignore_errors=True)
+    return db

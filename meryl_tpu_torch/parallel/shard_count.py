@@ -2,10 +2,12 @@
 all-to-all (counterpart of meryl_tpu/parallel/shard_count.py).
 
 A rank is a member of a group (parallel/local_group.py): one thread a
-device of this process (LocalGroup, the reference's mesh), or one
-process a device of a torch.distributed job (DistGroup: NCCL on cuda,
-gloo on cpu).  The rank's code is the same in both; only the group
-object differs.  Each rank feeds its own chunk every step.  A step is
+device of this process (LocalGroup, the reference's mesh), one process
+a device of a torch.distributed job (DistGroup: NCCL on cuda, gloo on
+cpu), or one thread a device of a process of such a job (JobGroup, the
+reference's mesh over several processes).  The rank's code is the same
+in all three; only the group object differs, and rank and size are
+global.  Each rank feeds its own chunk every step.  A step is
 the single-device accumulator's routed dataflow (ops/accum.py) with an
 exchange in the middle:
 
@@ -61,7 +63,7 @@ from .local_group import (GROUP_TIMEOUT, MAX, SUM, DistGroup, backend_for,
 # once it ends (publish_stats): spills and steps are equal on every
 # rank; captured_windows and recount_chunks count each rank's own
 # chunks, summed over the ranks of the process (the reference's figure
-# for the same mesh).  A rank of a job writes its own.
+# for the same mesh).  A process of a job writes its own members'.
 LAST_SHARD_STATS: dict = {}
 
 
@@ -204,11 +206,11 @@ class ShardedCounter:
     hatch extras per owner: owner key ranges ascend with rank, so the
     ranks' parts concatenate in order.
 
-    group: a LocalGroup member (parallel/local_group.py), whose device
-    is the rank's; or None, for this process's rank of the default
-    torch.distributed group, which must exist, on `device` (default
-    cuda), whose backend the group must have (NCCL for cuda, gloo for
-    cpu)."""
+    group: a LocalGroup or JobGroup member (parallel/local_group.py),
+    whose device is the rank's; or None, for this process's rank of the
+    default torch.distributed group, which must exist, on `device`
+    (default cuda), whose backend the group must have (NCCL for cuda,
+    gloo for cpu)."""
 
     # staged groups folded per merge: each carries about n chunks' mass
     # an owner row, so the single device's M = 8 divides by n
@@ -244,9 +246,10 @@ class ShardedCounter:
         if acc_cap is None and os.environ.get("MERYL_TPU_SHARD_ACC_CAP"):
             acc_cap = int(os.environ["MERYL_TPU_SHARD_ACC_CAP"])
         if acc_cap is None:
+            grid_bytes = self.B * self.Wc * 8 * mw.num_words(self.k)
             acc_cap = default_acc_cap(
                 self.k, self.device, self.MERGE_EVERY * self.B * self.Wc,
-                group.share)
+                group.share, group.exchange_grids * grid_bytes)
         self.acc_cap = int(acc_cap)
         # the per-row cap has 2x slack: the equal-mass map balances rows
         # only in expectation; the proactive spill (nmax * rpo >= acc_cap
@@ -594,15 +597,17 @@ class ShardedCounter:
 
 
 def default_acc_cap(k: int, device, staged_slots: int,
-                    share: int = 1) -> int:
+                    share: int = 1, reserved_bytes: int = 0) -> int:
     """Entries a rank's accumulator may hold before it spills: the
     rank's part of its device budget (counter.acc_cap_bytes: half the
-    card, or MERYL_TPU_ACC_CAP_GB, over the `share` ranks on that
-    device) over the bytes merge_cells holds a slot
-    (counter.acc_bytes_per_unique), less one merge's staged cells, and
-    halved, since a row may grow to twice its share (La_max)."""
+    card, or MERYL_TPU_ACC_CAP_GB, less the group's own buffers on that
+    device, `reserved_bytes`, over the `share` ranks on it) over the
+    bytes merge_cells holds a slot (counter.acc_bytes_per_unique), less
+    one merge's staged cells, and halved, since a row may grow to twice
+    its share (La_max)."""
     from ..counter import acc_bytes_per_unique, acc_cap_bytes
-    slots = acc_cap_bytes(device) // share // acc_bytes_per_unique(k)
+    slots = max(0, acc_cap_bytes(device) - reserved_bytes) // share \
+        // acc_bytes_per_unique(k)
     return max(1, (slots - staged_slots) // 2)
 
 

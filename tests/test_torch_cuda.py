@@ -792,3 +792,79 @@ def test_local_members_on_one_card_match_count(cuda, tmp_path, monkeypatch,
     want = counter.count_to_arrays([fa], k, device="cuda")
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def _collectives(m, n):
+    """Every collective a ShardedCounter makes, on member m's device;
+    -> the results on the host."""
+    r, dev = m.rank, m.device
+    inp = torch.arange(2 * n * 3, dtype=torch.int64, device=dev).reshape(
+        2 * n, 3) + 1000 * r
+    wide = torch.arange(n * 4 * 2, dtype=torch.int64, device=dev).reshape(
+        n, 4, 2) - 77 * r
+    outs = [torch.empty_like(inp), torch.empty_like(wide)]
+    m.all_to_all_single(outs[0], inp)
+    m.all_to_all_single(outs[1], wide)
+    from meryl_tpu_torch.parallel import local_group as lg
+    red = [torch.tensor([r, -r, 7], dtype=torch.int64, device=dev)
+           for _ in range(3)]
+    for op, t in zip((lg.SUM, lg.MAX, lg.MIN), red):
+        m.all_reduce(t, op)
+    got = [torch.zeros((2, 2), dtype=torch.int64, device=dev)
+           for _ in range(n)]
+    m.all_gather(got, torch.full((2, 2), r, dtype=torch.int64, device=dev))
+    m.barrier()
+    return [t.cpu() for t in outs + red + got]
+
+
+def test_job_group_on_one_card_matches_local_group(cuda):
+    """A JobGroup of 4 members on cuda:0 over a 1-rank NCCL group (one
+    NCCL rank, four threads) gives the LocalGroup's results."""
+    import torch.distributed as dist
+
+    from meryl_tpu_torch.parallel import local_group as lg
+    from meryl_tpu_torch.parallel import shard_count
+    n = 4
+    want = lg.LocalGroup(["cuda:0"] * n).run(lambda m: _collectives(m, n))
+    with shard_count.one_rank_group("cuda"):
+        assert dist.get_backend() == "nccl"
+        group = lg.JobGroup(["cuda:0"] * n)
+        got = group.run(lambda m: _collectives(m, n))
+    assert not dist.is_initialized()
+    assert [m.exchange_grids for m in group.members] == [2 * n] * n
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [21, 33])
+def test_job_members_on_one_card_match_count(cuda, tmp_path, monkeypatch,
+                                            k):
+    """count_to_arrays_multihost over 4 members on cuda:0 in a 1-rank
+    NCCL group gives count_to_arrays' arrays; each member launches the
+    extraction kernel once a step, and the hatches run."""
+    import torch.distributed as dist
+
+    from meryl_tpu_torch.parallel import multihost, shard_count
+    rng = np.random.default_rng(8)
+    fa = str(tmp_path / "in.fa")
+    with open(fa, "w") as f:
+        f.write(">polyA\n" + "A" * 3000 + "\n")
+        for i in range(300):
+            s = "".join("ACTG"[c] for c in rng.integers(0, 4, 400))
+            f.write(f">s{i}\n{s}\n")
+    monkeypatch.setenv("MERYL_TPU_SHARD_ACC_CAP", str(1 << 15))
+    before = extract_cuda.LAUNCHES
+    with shard_count.one_rank_group("cuda"):
+        parts = multihost.count_to_arrays_multihost(
+            [fa], k, chunk_len=1 << 14, device="cuda",
+            devices=["cuda:0"] * 4)
+    stats = dict(shard_count.LAST_SHARD_STATS)
+    assert not dist.is_initialized()
+    assert extract_cuda.LAUNCHES - before >= 4 * stats["steps"] >= 4
+    assert stats["recount_chunks"] >= 1 and stats["spills"] >= 1
+    monkeypatch.setenv("MERYL_TPU_SHARDED", "0")
+    want = counter.count_to_arrays([fa], k, device="cuda")
+    for i, w in zip((1, 2, 3), want):
+        np.testing.assert_array_equal(
+            np.concatenate([p[i] for p in parts]), w)

@@ -192,17 +192,24 @@ def test_launcher_refusals(tmp_path, monkeypatch, capsys):
     assert launch.main(["--nprocs", "2", "--"] + argv
                        + ["device=cuda"]) == 2
     assert "1 CUDA device(s)" in capsys.readouterr().err
-    assert launch.main(["--nprocs", "1", "--devices-per-proc", "4",
+    # P * D past the cards is refused alike, with no gloo or CPU instead
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert launch.main(["--nprocs", "1", "--devices-per-proc", "5",
                         "--"] + argv) == 2
-    assert "one device" in capsys.readouterr().err
+    assert "4 CUDA device(s)" in capsys.readouterr().err
+    assert launch.main(["--nprocs", "2", "--devices-per-proc", "4",
+                        "--"] + argv + ["device=cuda"]) == 2
+    err = capsys.readouterr().err
+    assert "4 CUDA device(s)" in err and "8 devices" in err
     assert launch.main(["--bogus", "--"] + argv) == 2
     assert not os.path.exists(str(tmp_path / "o.meryl"))
+    # MERYL_TPU_LOCAL_DEVICES in a job: D CPU members a process
     monkeypatch.setenv("MERYL_TPU_COORD", "127.0.0.1:1")
-    monkeypatch.setenv("MERYL_TPU_NPROCS", "2")
+    monkeypatch.setenv("MERYL_TPU_NPROCS", "1")
     monkeypatch.setenv("MERYL_TPU_PROCID", "0")
     monkeypatch.setenv("MERYL_TPU_LOCAL_DEVICES", "4")
-    with pytest.raises(ValueError, match="no counterpart"):
-        multihost.init_from_env("cpu")
+    assert multihost.init_from_env("cpu") == (0, 1)
+    assert multihost.local_devices("cpu") == [torch.device("cpu")] * 4
 
 
 def test_launcher_ends_the_other_ranks():

@@ -73,7 +73,15 @@ def _reference(name, n, tmp_path):
 @pytest.mark.parametrize("n", NS)
 @pytest.mark.parametrize("name", list(cases.SCENARIOS))
 def test_sharded_counter_matches_reference(port_runs, tmp_path, name, n):
-    ranks = _port(port_runs(n), name, n)
+    assert_matches_reference(_port(port_runs(n), name, n), name, n,
+                             tmp_path)
+
+
+def assert_matches_reference(ranks, name, n, tmp_path):
+    """The port's n ranks' results of a scenario (_port) against the
+    reference's mesh of n devices: every owner's parts bit for bit, the
+    spills and steps of every rank, the captures and recounts summed,
+    and a second finalize refused on every rank."""
     parts, stats, err = _reference(name, n, tmp_path)
     if err is not None:
         # every rank raises alike (lockstep), as the reference does

@@ -1,7 +1,8 @@
 """Scenarios of the ShardedCounter parity tests (tests/test_shard_count.py
 and tests/test_sharded_counter.py mirrored), shared by the JAX reference
 in the test process, the port's gloo ranks, which import this module
-and no JAX, and the port's members of one process (LocalGroup).
+and no JAX, the port's members of one process (LocalGroup) and the
+port's members of a job's processes (JobGroup).
 
 A scenario's input is a list of steps, each the (n * chunk,) uint8 codes
 of n sources; source s's chunk is codes[s * chunk:(s + 1) * chunk]."""
@@ -61,8 +62,8 @@ def step_codes(name, n):
 
 def run_scenario(name, n, rank, out_dir, group=None):
     """Rank `rank` of n runs the named scenario through the port's
-    ShardedCounter on the CPU: over `group` (a LocalGroup member) or, by
-    default, the default torch.distributed group.  -> (result dict,
+    ShardedCounter on the CPU: over `group` (a LocalGroup or JobGroup
+    member) or, by default, the default torch.distributed group.  -> (result dict,
     arrays of its finalized parts)."""
     from meryl_tpu_torch.parallel.shard_count import ShardedCounter
     k, mode, chunk, _, acc_cap, spill, _, _ = SCENARIOS[name]
@@ -95,11 +96,20 @@ def run_scenario(name, n, rank, out_dir, group=None):
     return res, arrays
 
 
-def rank_scenarios(rank, n, out_dir, names):
-    """Rank `rank` of n runs every named scenario (run_scenario) and
-    writes what it finalized (<out_dir>/<name>_r<rank>.npz and .json)."""
+def rank_scenarios(rank, n, out_dir, names, group=None):
+    """Rank `rank` of n runs every named scenario (run_scenario, over
+    `group`) and writes what it finalized (<out_dir>/<name>_r<rank>.npz
+    and .json)."""
     for name in names:
-        res, arrays = run_scenario(name, n, rank, out_dir)
+        res, arrays = run_scenario(name, n, rank, out_dir, group=group)
         np.savez(os.path.join(out_dir, f"{name}_r{rank}.npz"), **arrays)
         with open(os.path.join(out_dir, f"{name}_r{rank}.json"), "w") as f:
             json.dump(res, f)
+
+
+def job_scenarios(proc, nprocs, d, out_dir, names):
+    """Process `proc` of a gloo job runs every named scenario over d CPU
+    members of a JobGroup (global rank proc * d + l of nprocs * d)."""
+    from meryl_tpu_torch.parallel.local_group import JobGroup
+    JobGroup(["cpu"] * d).run(lambda m: rank_scenarios(
+        m.rank, m.size, out_dir, names, group=m))
