@@ -1,0 +1,12 @@
+"""Time the device loop (counter.DeviceAccCounter) waited on the reader
+thread in the window's count jobs, as a % of the window
+(LAST_WIRE_STATS["scan_stall_s"])."""
+
+from harness.readers import counter_sum, share_of_window
+
+PROBES = ["meryl_tpu_torch.counter:LAST_WIRE_STATS"]
+
+
+def read(run):
+    return share_of_window(run, counter_sum(run, PROBES[0], "scan_stall_s",
+                                            "count"))
