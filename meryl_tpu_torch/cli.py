@@ -43,7 +43,7 @@ import shutil
 import sys
 import tempfile
 
-from . import reports
+from . import reports, trace
 from .db import MerylDB, is_meryl_db
 from .histogram import MerylHistogram
 from .optree import (COUNT_OPS, NEEDS_CONSTANT, NEEDS_THRESHOLD, DBInput,
@@ -305,6 +305,7 @@ def build(args: list[str]) -> CommandBuilder:
 
 
 def main(argv=None) -> int:
+    trace.reset()
     argv = list(sys.argv[1:] if argv is None else argv)
 
     if not argv or argv[0] in ("-h", "help", "--help"):

@@ -37,6 +37,7 @@ import torch
 
 from . import kmer as km
 from . import resolve_device
+from . import trace
 from .db import MerylDB
 from .io.sequence import SEP, SequenceChunker
 from .ops import accum
@@ -332,40 +333,25 @@ class DeviceAccCounter:
         self.wire_h2d_bytes = 0
         self.wire_d2h_bytes = 0
         self._bases_seen = 0
-        # every host<->device interaction is counted, with the time the
-        # host was blocked in it
-        self.sync = {"n_h2d": 0, "n_dispatch": 0, "n_fetch": 0,
-                     "t_h2d_s": 0.0, "t_dispatch_s": 0.0,
-                     "t_fetch_s": 0.0, "host_pack_s": 0.0,
-                     "host_finalize_s": 0.0, "t_download_s": 0.0}
+        self.download_s = 0.0      # the last download's whole span
+        # every host<->device interaction runs in a span
+        # (trace.LAST_SPANS: count.h2d, count.dispatch, count.fetch)
 
     def _put(self, x: np.ndarray):
-        t0 = _time.perf_counter()
-        r = torch.from_numpy(x).to(self.device)
-        self.sync["n_h2d"] += 1
-        self.sync["t_h2d_s"] += _time.perf_counter() - t0
-        return r
+        with trace.span("count.h2d"):
+            return torch.from_numpy(x).to(self.device)
 
     def _dispatch(self, fn, *args, **kw):
-        t0 = _time.perf_counter()
-        r = fn(*args, **kw)
-        self.sync["n_dispatch"] += 1
-        self.sync["t_dispatch_s"] += _time.perf_counter() - t0
-        return r
+        with trace.span("count.dispatch"):
+            return fn(*args, **kw)
 
     def _fetch(self, x: torch.Tensor) -> np.ndarray:
-        t0 = _time.perf_counter()
-        r = _to_host(x)
-        self.sync["n_fetch"] += 1
-        self.sync["t_fetch_s"] += _time.perf_counter() - t0
-        return r
+        with trace.span("count.fetch"):
+            return _to_host(x)
 
     def _fetch_int(self, x: torch.Tensor) -> int:
-        t0 = _time.perf_counter()
-        r = int(x)
-        self.sync["n_fetch"] += 1
-        self.sync["t_fetch_s"] += _time.perf_counter() - t0
-        return r
+        with trace.span("count.fetch"):
+            return int(x)
 
     def _tail(self):
         return () if mw.num_words(self.k) == 1 else (2,)
@@ -398,10 +384,9 @@ class DeviceAccCounter:
                 codes = np.concatenate(
                     [codes, np.full(self.chunk_len - len(codes), SEP,
                                     np.uint8)])
-            t0 = _time.perf_counter()
-            packed2, exc, n_real = km.pack_codes_2bit(
-                codes, pad_to=self.chunk_len)
-            self.sync["host_pack_s"] += _time.perf_counter() - t0
+            with trace.span("count.host_pack"):
+                packed2, exc, n_real = km.pack_codes_2bit(
+                    codes, pad_to=self.chunk_len)
         self.n_chunks += 1
         self.wire_h2d_bytes += packed2.nbytes + exc.nbytes
         cells, ovf, n_ovf_row, n_allones = self._dispatch(
@@ -612,12 +597,10 @@ class DeviceAccCounter:
         buf[nk:].copy_(counts[keep])
         host = self._fetch(buf)
         self.wire_d2h_bytes += host.nbytes
-        t0 = _time.perf_counter()
-        hi, lo = mw.to_hilo(host[:nk].view(np.int64).reshape(
-            (n,) + self._tail()), self.k)
-        run = (hi, lo, host[nk:].view(np.uint32).astype(np.uint64))
-        self.sync["host_finalize_s"] += _time.perf_counter() - t0
-        return run
+        with trace.span("count.host_decode"):
+            hi, lo = mw.to_hilo(host[:nk].view(np.int64).reshape(
+                (n,) + self._tail()), self.k)
+            return hi, lo, host[nk:].view(np.uint32).astype(np.uint64)
 
     def _download_packed(self, lmax: int):
         """Gap-packed download (ops/accum.pack_for_download_fused): one
@@ -662,58 +645,53 @@ class DeviceAccCounter:
         d2h_bytes = blob.nbytes
 
         cbits_row = (32 - gbits_f.astype(np.int32)).astype(np.uint32)
-        # host decode time = wall inside this window minus any fetch
-        # time the dense rows spend blocked on the device
-        t_host0 = _time.perf_counter()
-        t_fetch_at_host0 = self.sync["t_fetch_s"]
-        lo0 = head_p[0]
-        if P == 2:
-            lo0 = lo0 | (head_p[1] << np.uint64(32))
-        gaps = (packed >> cbits_row[:, None]).astype(np.uint64)
-        cnts = (packed & ((np.uint32(1) << cbits_row[:, None])
-                          - np.uint32(1))).astype(np.uint32)
-        is_exc = packed == 0xFFFFFFFF
-        gaps[is_exc] = 0
-        gaps[:, 0] = 0
-        keys = gaps
-        keys[:, 0] = lo0
-        np.cumsum(keys, axis=1, out=keys)
-        # exceptions: absolute key + count; the correction propagates
-        # to the rest of the row (later gaps are relative to the true
-        # predecessor); columns ascend, so applying in array order
-        # keeps each correction consistent downstream
-        for r in np.flatnonzero((n_exc_row > 0) & (n_exc_row <= EC)):
-            for j in range(int(n_exc_row[r])):
-                c = int(exc_col[r, j])
-                if c >= lmax:
-                    return None  # entry past the downloaded prefix
-                t = exc_p[0][r, j]
-                if P == 2:
-                    t = t | (exc_p[1][r, j] << np.uint64(32))
-                keys[r, c:] += t - keys[r, c]
-                cnts[r, c] = exc_cnt[r, j]
-        m = packed != 0
-        m[:, 0] = head_c > 0
-        cnts[:, 0] = head_c
-        if len(dense_rows):
-            dr = torch.from_numpy(dense_rows).to(self.device)
-            dk = self._fetch(self._dispatch(
-                torch.index_select, key[:, :lmax], 0, dr))
-            dc = self._fetch(self._dispatch(
-                torch.index_select, counts[:, :lmax], 0, dr)
-                .to(torch.int32)).view(np.uint32)
-            d2h_bytes += dk.nbytes + dc.nbytes
-            keys[dense_rows] = dk.view(np.uint64) ^ np.uint64(1 << 63)
-            cnts[dense_rows] = dc
-            m[dense_rows] = dc > 0
-        lo = keys[m]
-        cts = cnts[m]
-        hi = np.zeros(len(lo), np.uint64)
-        self.wire_d2h_bytes += d2h_bytes
-        self.sync["host_finalize_s"] += (_time.perf_counter() - t_host0
-                                         - self.sync["t_fetch_s"]
-                                         + t_fetch_at_host0)
-        return (hi, lo, cts.astype(np.uint64))
+        # the host decode (its span leaves out the dense rows' fetches)
+        with trace.span("count.host_decode"):
+            lo0 = head_p[0]
+            if P == 2:
+                lo0 = lo0 | (head_p[1] << np.uint64(32))
+            gaps = (packed >> cbits_row[:, None]).astype(np.uint64)
+            cnts = (packed & ((np.uint32(1) << cbits_row[:, None])
+                              - np.uint32(1))).astype(np.uint32)
+            is_exc = packed == 0xFFFFFFFF
+            gaps[is_exc] = 0
+            gaps[:, 0] = 0
+            keys = gaps
+            keys[:, 0] = lo0
+            np.cumsum(keys, axis=1, out=keys)
+            # exceptions: absolute key + count; the correction propagates
+            # to the rest of the row (later gaps are relative to the true
+            # predecessor); columns ascend, so applying in array order
+            # keeps each correction consistent downstream
+            for r in np.flatnonzero((n_exc_row > 0) & (n_exc_row <= EC)):
+                for j in range(int(n_exc_row[r])):
+                    c = int(exc_col[r, j])
+                    if c >= lmax:
+                        return None  # entry past the downloaded prefix
+                    t = exc_p[0][r, j]
+                    if P == 2:
+                        t = t | (exc_p[1][r, j] << np.uint64(32))
+                    keys[r, c:] += t - keys[r, c]
+                    cnts[r, c] = exc_cnt[r, j]
+            m = packed != 0
+            m[:, 0] = head_c > 0
+            cnts[:, 0] = head_c
+            if len(dense_rows):
+                dr = torch.from_numpy(dense_rows).to(self.device)
+                dk = self._fetch(self._dispatch(
+                    torch.index_select, key[:, :lmax], 0, dr))
+                dc = self._fetch(self._dispatch(
+                    torch.index_select, counts[:, :lmax], 0, dr)
+                    .to(torch.int32)).view(np.uint32)
+                d2h_bytes += dk.nbytes + dc.nbytes
+                keys[dense_rows] = dk.view(np.uint64) ^ np.uint64(1 << 63)
+                cnts[dense_rows] = dc
+                m[dense_rows] = dc > 0
+            lo = keys[m]
+            cts = cnts[m]
+            hi = np.zeros(len(lo), np.uint64)
+            self.wire_d2h_bytes += d2h_bytes
+            return (hi, lo, cts.astype(np.uint64))
 
     def finalize(self):
         """-> sorted unique (hi, lo, counts-u32)."""
@@ -727,22 +705,26 @@ class DeviceAccCounter:
 
         runs = list(self._fallback_runs)
         if self._acc is not None:
-            t0 = _time.perf_counter()
-            runs.insert(0, self.download())
-            self.sync["t_download_s"] += _time.perf_counter() - t0
-        if self._ovf_keys:
-            runs.append(self._capture_run())
-        hi, lo, counts = merge_runs(runs)
-        if n_allones:
-            ao_hi, ao_lo, _ = self._allones_run(0)
-            n = min(n_allones, int(km.VALUE_MAX))
-            if len(lo) and hi[-1] == ao_hi[0] and lo[-1] == ao_lo[0]:
-                counts[-1] = min(int(counts[-1]) + n, int(km.VALUE_MAX))
-            else:
-                hi = np.append(hi, ao_hi)
-                lo = np.append(lo, ao_lo)
-                counts = np.append(counts, np.uint32(n))
-        return hi, lo, counts
+            with trace.span("count.download") as sp:
+                runs.insert(0, self.download())
+            self.download_s = sp.seconds
+        # the host merge as a leaf of its own: a trace's gap past the
+        # download's many operators is then still named after finalize
+        with trace.span("count.finalize"):
+            if self._ovf_keys:
+                runs.append(self._capture_run())
+            hi, lo, counts = merge_runs(runs)
+            if n_allones:
+                ao_hi, ao_lo, _ = self._allones_run(0)
+                n = min(n_allones, int(km.VALUE_MAX))
+                if len(lo) and hi[-1] == ao_hi[0] and lo[-1] == ao_lo[0]:
+                    counts[-1] = min(int(counts[-1]) + n,
+                                     int(km.VALUE_MAX))
+                else:
+                    hi = np.append(hi, ao_hi)
+                    lo = np.append(lo, ao_lo)
+                    counts = np.append(counts, np.uint32(n))
+            return hi, lo, counts
 
 
 def device_bytes_per_base(k: int) -> int:
@@ -879,12 +861,13 @@ def _use_device_acc(paths, k, device, count_suffix=None) -> int:
 LAST_WIRE_STATS: dict = {}
 
 
-def _prefetch_chunks(chunker, depth: int = 2, transform=None,
-                     stats: dict | None = None):
+def _prefetch_chunks(chunker, depth: int = 2, transform=None):
     """Iterate a SequenceChunker through a small queue fed by a reader
     thread: the file scan and the per-chunk `transform` (the 2-bit
     pack) overlap the device work.  Reader errors re-raise here.  When
-    the consumer stops early (an error, close()), the reader ends too."""
+    the consumer stops early (an error, close()), the reader ends too.
+    The reader's spans (count.reader_scan, count.reader_pack) reach
+    trace.LAST_SPANS before the consumer sees the end."""
     import queue
     import threading
 
@@ -893,21 +876,18 @@ def _prefetch_chunks(chunker, depth: int = 2, transform=None,
     stop = threading.Event()
 
     def _reader():
-        busy = 0.0
         try:
-            it = iter(chunker)
-            while not stop.is_set():
-                t0 = _time.perf_counter()
-                try:
-                    c = next(it)
-                except StopIteration:
-                    break
-                if transform is not None:
-                    c = transform(c)
-                busy += _time.perf_counter() - t0
-                q.put(c)
-            if stats is not None:
-                stats["reader_busy_s"] = round(busy, 4)
+            with trace.thread_spans():
+                it = iter(chunker)
+                while not stop.is_set():
+                    with trace.span("count.reader_scan"):
+                        c = next(it, DONE)
+                    if c is DONE:
+                        break
+                    if transform is not None:
+                        with trace.span("count.reader_pack"):
+                            c = transform(c)
+                    q.put(c)
             q.put(DONE)
         except BaseException as e:  # surface reader errors, then stop
             q.put(e)
@@ -936,22 +916,17 @@ def count_to_arrays_device_acc(paths, k: int, mode: str, hpc: bool,
                                chunk_len: int, expected_uniques: int,
                                progress=None, device="cuda", segment=None):
     acc = DeviceAccCounter(k, mode, chunk_len, expected_uniques, device)
+    spans0 = dict(trace.LAST_SPANS)
     nbases = 0
-    reader_stats: dict = {}
     it = iter(_prefetch_chunks(SequenceChunker(paths, k, chunk_len,
                                                hpc=hpc, segment=segment),
-                               depth=4, transform=acc.prepack,
-                               stats=reader_stats))
+                               depth=4, transform=acc.prepack))
     salvage_runs = None
-    scan_stall_s = 0.0  # consumer time blocked on the reader thread
     while True:
-        t0 = _time.perf_counter()
-        try:
-            chunk = next(it)
-        except StopIteration:
-            scan_stall_s += _time.perf_counter() - t0
+        with trace.span("count.wait_reader"):  # the loop blocked on it
+            chunk = next(it, None)
+        if chunk is None:
             break
-        scan_stall_s += _time.perf_counter() - t0
         try:
             acc.add_codes(chunk)
         except AccCapacity:
@@ -962,33 +937,43 @@ def count_to_arrays_device_acc(paths, k: int, mode: str, hpc: bool,
         nbases += chunk[4]
         if progress:
             progress(nbases)
-    t_fin0 = _time.perf_counter()
-    if salvage_runs is not None:
-        runs = salvage_runs
-        for chunk in it:
-            # prepack() built the wire on the reader thread already
-            wire = _wire_tensors(chunk[1], chunk[2], acc.device)
-            runs.extend(_finish_chunk(*_count_chunk(
-                wire + (chunk[3],), k, mode, acc.device)))
-            acc.n_chunks += 1
-            nbases += chunk[4]
-            if progress:
-                progress(nbases)
-        out = merge_runs(runs)
-    else:
-        try:
-            out = acc.finalize()
-        except AccCapacity:  # the final merge itself outgrew the budget
-            salvage_runs = acc.salvage()
-            out = merge_runs(salvage_runs)
+    with trace.span("count.finalize") as fin:
+        if salvage_runs is not None:
+            runs = salvage_runs
+            for chunk in it:
+                # prepack() built the wire on the reader thread already
+                wire = _wire_tensors(chunk[1], chunk[2], acc.device)
+                runs.extend(_finish_chunk(*_count_chunk(
+                    wire + (chunk[3],), k, mode, acc.device)))
+                acc.n_chunks += 1
+                nbases += chunk[4]
+                if progress:
+                    progress(nbases)
+            out = merge_runs(runs)
+        else:
+            try:
+                out = acc.finalize()
+            except AccCapacity:  # the final merge itself outgrew the budget
+                salvage_runs = acc.salvage()
+                out = merge_runs(salvage_runs)
+    sp = trace.since(spans0)
+
+    def s(name):
+        return round(sp.get(f"count.{name}_s", 0.0), 4)
+
+    def n(name):
+        return sp.get(f"count.{name}_n", 0)
+
     LAST_WIRE_STATS.clear()
     LAST_WIRE_STATS.update(
         h2d_bytes=acc.wire_h2d_bytes, d2h_bytes=acc.wire_d2h_bytes,
-        bases=nbases, scan_stall_s=round(scan_stall_s, 4),
-        reader_busy_s=reader_stats.get("reader_busy_s", 0.0),
-        t_finalize_s=round(_time.perf_counter() - t_fin0, 4),
-        **{kk: (round(v, 4) if isinstance(v, float) else v)
-           for kk, v in acc.sync.items()},
+        bases=nbases, scan_stall_s=s("wait_reader"),
+        reader_busy_s=round(s("reader_scan") + s("reader_pack"), 4),
+        t_finalize_s=round(fin.seconds, 4),
+        n_h2d=n("h2d"), n_dispatch=n("dispatch"), n_fetch=n("fetch"),
+        t_h2d_s=s("h2d"), t_dispatch_s=s("dispatch"), t_fetch_s=s("fetch"),
+        host_pack_s=s("host_pack"), host_finalize_s=s("host_decode"),
+        t_download_s=round(acc.download_s, 4),
         chunks=acc.n_chunks, merges=acc.n_merges, regrows=acc.n_regrows,
         recounts=acc.n_recounts, captured=acc.n_captured,
         salvaged=salvage_runs is not None)
@@ -1310,7 +1295,9 @@ def count_to_db(paths, out_path: str, k: int, mode: str = "canonical",
                                      progress=progress, device=device,
                                      count_suffix=count_suffix,
                                      segment=segment)
-    return MerylDB.write(out_path, k, hi, lo, counts, mode=mode, hpc=hpc)
+    with trace.span("count.db_write"):
+        return MerylDB.write(out_path, k, hi, lo, counts, mode=mode,
+                             hpc=hpc)
 
 
 def _count_to_db_sharded_spill(paths, out_path: str, k: int, *, mode: str,

@@ -31,6 +31,7 @@ import torch
 
 from . import kmer as km
 from . import resolve_device
+from . import trace
 from .io.sequence import iter_sequences
 from .lookup import ExactLookup
 from .ops import bacjoin as bj
@@ -137,10 +138,12 @@ def load_tables(g: LookupGlobal, err=None):
     err = err or sys.stderr
     from .db import MerylDB
     total = 0
-    for p in g.dbs:
-        L = ExactLookup(MerylDB.open(p), g.min_v, g.max_v, device=g.device)
-        g.lookups.append(L)
-        total += L.estimate_memory_bytes()
+    with trace.span("lookup.table_load"):  # DB read, build, upload
+        for p in g.dbs:
+            L = ExactLookup(MerylDB.open(p), g.min_v, g.max_v,
+                            device=g.device)
+            g.lookups.append(L)
+            total += L.estimate_memory_bytes()
     if g.estimate:
         err.write(f"Estimated memory usage: {total / 1e9:.3f} GB for "
                   f"{len(g.lookups)} database(s)\n")
@@ -368,35 +371,41 @@ def cmd_existence(g: LookupGlobal, out):
     it = iter_sequences(g.seq1)
     done = False
     while not done:
-        batch = []
-        nb = 0
-        while nb < FILTER_BATCH_BASES:
-            r = next(it, None)
-            if r is None:
-                done = True
+        with trace.span("lookup.parse"):
+            batch = []
+            nb = 0
+            while nb < FILTER_BATCH_BASES:
+                r = next(it, None)
+                if r is None:
+                    done = True
+                    break
+                batch.append(r)
+                nb += len(r[1])
+            if not batch:
                 break
-            batch.append(r)
-            nb += len(r[1])
-        if not batch:
-            break
-        codes = [km.CODE_LUT[np.frombuffer(r[1], np.uint8)]
-                 for r in batch]
-        buf, offs, lens = km.concat_codes_with_breakers(codes)
-        nf, nr, vmask = _per_position_values(g.lookups, buf, k,
-                                             exists_only=True)
-        spans = np.maximum(0, lens - k + 1)
-        cv = _prefix_counts(vmask, len(buf))
-        ntotal = cv[offs + spans] - cv[offs]
-        nfound = []
-        for d in range(len(g.lookups)):
-            f = ((nf[d] > 0) | (nr[d] > 0)) & vmask
-            cf = _prefix_counts(f, len(buf))
-            nfound.append(cf[offs + spans] - cf[offs])
-        for i, (name, _seq, _q) in enumerate(batch):
-            line = [name, str(int(ntotal[i]))]
-            for d, L in enumerate(g.lookups):
-                line += [str(L.n_kmers()), str(int(nfound[d][i]))]
-            out.write("\t".join(line) + "\n")
+            codes = [km.CODE_LUT[np.frombuffer(r[1], np.uint8)]
+                     for r in batch]
+            buf, offs, lens = km.concat_codes_with_breakers(codes)
+        with trace.span("lookup.query"):
+            nf, nr, vmask = _per_position_values(g.lookups, buf, k,
+                                                 exists_only=True)
+        # the prefix sums in a span of their own: host work after many
+        # torch operations, which a trace's gap labels should still name
+        with trace.span("lookup.query"):
+            spans = np.maximum(0, lens - k + 1)
+            cv = _prefix_counts(vmask, len(buf))
+            ntotal = cv[offs + spans] - cv[offs]
+            nfound = []
+            for d in range(len(g.lookups)):
+                f = ((nf[d] > 0) | (nr[d] > 0)) & vmask
+                cf = _prefix_counts(f, len(buf))
+                nfound.append(cf[offs + spans] - cf[offs])
+        with trace.span("lookup.output"):
+            for i, (name, _seq, _q) in enumerate(batch):
+                line = [name, str(int(ntotal[i]))]
+                for d, L in enumerate(g.lookups):
+                    line += [str(L.n_kmers()), str(int(nfound[d][i]))]
+                out.write("\t".join(line) + "\n")
 
 
 def _prefix_counts(mask: np.ndarray, n: int) -> np.ndarray:
@@ -496,6 +505,7 @@ def cmd_filter(g: LookupGlobal, out1, out2, err=None):
 
 
 def main(argv=None) -> int:
+    trace.reset()
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         sys.stderr.write(USAGE)

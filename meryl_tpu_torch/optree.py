@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from . import kmer as km
+from . import trace
 from .db import NUM_FILES, MerylDB, MerylDBWriter
 from .ops import multiword as mw
 from .ops import rowsort, setops
@@ -328,8 +329,9 @@ class BucketEvaluator:
         for inp in node.inputs:
             if isinstance(inp, DBInput):
                 db = inp.open()
-                ins.append(self._concat_buckets(
-                    [db.load_bucket(ff) for ff in ffs]))
+                with trace.span("setop.db_read"):
+                    ins.append(self._concat_buckets(
+                        [db.load_bucket(ff) for ff in ffs]))
             elif isinstance(inp, OpNode):
                 ins.append(self.eval_buckets(inp, ffs))
             else:
@@ -347,11 +349,12 @@ class BucketEvaluator:
         thr = int(node.threshold or 0) & setops.MASK
         ms_flags = tuple(input_multiset(i) for i in node.inputs)
         rows = not any(ms_flags) and total >= self.ROW_SPLIT_MIN
-        keys, values, ids = (self._pack_rows if rows else self._pack_flat)(
-            ins, m)
-        dev = self.device
-        key_t, val_t, ids_t = (torch.from_numpy(a).to(dev)
-                               for a in (keys, values, ids))
+        with trace.span("setop.pack"):
+            keys, values, ids = (self._pack_rows if rows
+                                 else self._pack_flat)(ins, m)
+        with trace.span("setop.upload"):
+            key_t, val_t, ids_t = [torch.from_numpy(a).to(self.device)
+                                   for a in (keys, values, ids)]
         if any(ms_flags):
             skey, out_vals, keep = setops.merge_op_multiset(
                 key_t, val_t, ids_t, node.op, m, thr, ms_flags, self.k)
@@ -364,8 +367,9 @@ class BucketEvaluator:
             STATS["row_dispatches"] += 1
             STATS["rows"] += values.shape[0]
             STATS["row_slots"] += values.size
-        hi, lo = mw.to_hilo(skey[keep].cpu().numpy(), self.k)
-        return hi, lo, out_vals[keep].cpu().numpy().astype(np.uint32)
+        with trace.span("setop.download"):  # waits for the merge too
+            hi, lo = mw.to_hilo(skey[keep].cpu().numpy(), self.k)
+            return hi, lo, out_vals[keep].cpu().numpy().astype(np.uint32)
 
 
 def _bucket_entry_estimates(node: OpNode) -> np.ndarray:
@@ -440,20 +444,22 @@ def execute_root(node: OpNode, k: int, *, device="cuda", out=None,
                     sys.stderr.write(
                         f"merylOp::eval()--   {node.op} kmer {line}\n")
             if writer is not None:
-                if len(group) == 1:
-                    writer.add_bucket(group[0], hi, lo, counts)
-                else:
-                    pref = km.prefix6_from_hilo(hi, lo, k)
-                    for ff in group:
-                        s = np.searchsorted(pref, ff, "left")
-                        e = np.searchsorted(pref, ff, "right")
-                        writer.add_bucket(ff, hi[s:e], lo[s:e],
-                                          counts[s:e])
+                with trace.span("setop.db_write"):
+                    if len(group) == 1:
+                        writer.add_bucket(group[0], hi, lo, counts)
+                    else:
+                        pref = km.prefix6_from_hilo(hi, lo, k)
+                        for ff in group:
+                            s = np.searchsorted(pref, ff, "left")
+                            e = np.searchsorted(pref, ff, "right")
+                            writer.add_bucket(ff, hi[s:e], lo[s:e],
+                                              counts[s:e])
             if pf is not None and len(counts):
                 print_kmers(hi, lo, counts, k, out=pf,
                             acgt_order=node.print_acgt)
         if writer is not None:
-            return writer.finalize()
+            with trace.span("setop.db_write"):
+                return writer.finalize()
         return None
     finally:
         if pf is not None and pf is not sys.stdout:

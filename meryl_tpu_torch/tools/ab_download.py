@@ -21,9 +21,11 @@ For each arm of each turn a new DeviceAccCounter is fed the file's
 chunks at the production chunk size (untimed) and finalize() is timed
 with that arm as its download; the arms run in turns, A B C then C B A.
 A line of JSON an arm and turn: the download's wall ms (device pack,
-copy, synchronize and host decode: what finalize waits for), the bytes
-it shipped and their GB/s over that wall, the seconds blocked in
-fetches, the host decode seconds, and finalize's wall.  Turn 0 of the
+copy, synchronize and host decode: what finalize waits for; its
+count.download span), the bytes it shipped and their GB/s over that
+wall, the seconds blocked in fetches and the host decode seconds
+(finalize's count.fetch and count.host_decode spans, from
+trace.LAST_SPANS), and finalize's wall.  Turn 0 of the
 pinned arms includes the allocation of the pinned buffer, which later
 turns find cached.  Every arm must decode to the same arrays.  Prints
 the card's name and power limit first.  Needs CUDA.
@@ -41,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from .. import counter
+from .. import counter, trace
 from ..io.sequence import SequenceChunker
 from ..ops import multiword as mw
 
@@ -89,7 +91,7 @@ def run_arm(arm, paths, k, chunk_len, device):
                 return run
             acc._download_packed = must_pack
     try:
-        fetch0 = acc.sync["t_fetch_s"]
+        spans0 = dict(trace.LAST_SPANS)
         if device.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -100,12 +102,13 @@ def run_arm(arm, paths, k, chunk_len, device):
             os.environ.pop("MERYL_TPU_PACK_D2H", None)
         else:
             os.environ["MERYL_TPU_PACK_D2H"] = saved
-    ms = acc.sync["t_download_s"] * 1e3
+    spans = trace.since(spans0)
+    ms = acc.download_s * 1e3
     return {"arm": arm, "download_ms": ms,
             "d2h_bytes": acc.wire_d2h_bytes,
             "GB_per_s": acc.wire_d2h_bytes / ms / 1e6,
-            "t_fetch_s": acc.sync["t_fetch_s"] - fetch0,
-            "host_decode_s": acc.sync["host_finalize_s"],
+            "t_fetch_s": spans.get("count.fetch_s", 0.0),
+            "host_decode_s": spans.get("count.host_decode_s", 0.0),
             "t_finalize_s": t_fin, "kmers": len(out[2])}, out
 
 

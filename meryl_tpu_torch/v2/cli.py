@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import kmer as km
-from .. import optree, resolve_device
+from .. import optree, resolve_device, trace
 from ..counter import count_to_arrays, count_to_db
 from ..db import MerylDB, MerylDBWriter, is_meryl_db
 from ..histogram import MerylHistogram
@@ -813,6 +813,7 @@ Aliases: union[-min|-max|-sum] intersect[-min|-max|-sum] subtract
 
 
 def main(argv=None) -> int:
+    trace.reset()
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help", "help"):
         sys.stderr.write(USAGE)
