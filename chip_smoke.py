@@ -5,8 +5,9 @@
 
 Phases, each printing its lines; any failure exits non-zero:
   1. environment: torch / CUDA versions, the card's name and power limit
-  2. build: the CUDA kernels (one nvcc per source, all started together)
-     and the native host library, from the sources in this checkout
+  2. build: the CUDA kernels (one nvcc per source, all started together),
+     the native host library and the native 2-bit pack, from the
+     sources in this checkout
   3. extract parity: the extraction kernel against its plain PyTorch
      version at the production chunk (2^22 codes), every k class and
      mode; then, at k=21 and 33 canonical and k=64 "both", the kernel
@@ -28,7 +29,7 @@ Phases, each printing its lines; any failure exits non-zero:
      below C
   6. count path: `meryl count k=21` through the CLI on a ~70 Mbase
      FASTQ generated from a seed, with the production geometry, checked
-     exactly against a numpy brute force
+     exactly against a numpy brute force; every chunk packed natively
   7. the exactness hatches at small sizes, each against brute force
   8. set-op path: a second read set of the same genome with 0.1 % SNPs
      is counted, then a Merqury-style sequence of set operations runs
@@ -162,19 +163,22 @@ def phase_env(torch):
 
 
 def phase_build(kernel_modules, native):
-    """Every kernel library and the native host library at once."""
+    """Every kernel library and the native host libraries at once."""
+    from meryl_tpu_torch import kmer
     def timed(fn):
         t0 = time.perf_counter()
         fn()
         return time.perf_counter() - t0
     jobs = {name: mod.build for name, mod in kernel_modules.items()}
     jobs["native host library"] = native.available
+    jobs["native 2-bit pack"] = kmer._native_pack
     with ThreadPoolExecutor(len(jobs)) as pool:
         futs = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
         secs = {name: f.result() for name, f in futs.items()}
     have_native = native.available()  # host scanner and k-way merge
     print("build: " + "; ".join(f"{n} in {s:.2f} s" for n, s in secs.items())
-          + ("" if have_native else " (native host library UNAVAILABLE)"))
+          + ("" if have_native else " (native host library UNAVAILABLE)")
+          + ("" if kmer._native_pack() else " (native 2-bit pack UNAVAILABLE)"))
 
 
 def _time_ms(torch, fn, reps=20):
@@ -509,13 +513,18 @@ def phase_main_path(torch, cli, counter, accum, extract_cuda, MerylDB,
     if not (stats["chunks"] >= 1 and launches >= stats["chunks"]):
         raise AssertionError(f"extract kernel launches {launches} < "
                              f"chunks {stats['chunks']}")
+    if stats["native_packs"] != stats["chunks"] + stats["recounts"]:
+        raise AssertionError(f"native 2-bit packs {stats['native_packs']} "
+                             f"!= chunks {stats['chunks']} + recounts "
+                             f"{stats['recounts']}")
     bases = int(reads.size)
     print(f"count path: {bases} input bases, {stats['chunks']} chunks, "
           f"{bases / wall / 1e6:.3f} Mbases/s ({wall:.3f} s wall incl. DB "
           f"write), {len(lo)} distinct k-mers equal to brute force; "
           f"merges {stats['merges']} regrows {stats['regrows']} recounts "
           f"{stats['recounts']} captured {stats['captured']} salvaged "
-          f"{stats['salvaged']}; extract LAUNCHES {launches}; "
+          f"{stats['salvaged']}; native packs {stats['native_packs']}; "
+          f"extract LAUNCHES {launches}; "
           f"max_memory_allocated {peak} B; geometry L0={plan['L0']} "
           f"B={plan['B']} M={plan['M']} c={plan['c']} La0={plan['La0']}")
     print("count path stats: " + json.dumps(stats, sort_keys=True))

@@ -917,6 +917,7 @@ def count_to_arrays_device_acc(paths, k: int, mode: str, hpc: bool,
                                progress=None, device="cuda", segment=None):
     acc = DeviceAccCounter(k, mode, chunk_len, expected_uniques, device)
     spans0 = dict(trace.LAST_SPANS)
+    packs0 = km.PACK_STATS["native"]
     nbases = 0
     it = iter(_prefetch_chunks(SequenceChunker(paths, k, chunk_len,
                                                hpc=hpc, segment=segment),
@@ -976,7 +977,9 @@ def count_to_arrays_device_acc(paths, k: int, mode: str, hpc: bool,
         t_download_s=round(acc.download_s, 4),
         chunks=acc.n_chunks, merges=acc.n_merges, regrows=acc.n_regrows,
         recounts=acc.n_recounts, captured=acc.n_captured,
-        salvaged=salvage_runs is not None)
+        salvaged=salvage_runs is not None,
+        # native 2-bit packs: one a chunk, one more a recounted chunk
+        native_packs=km.PACK_STATS["native"] - packs0)
     return out
 
 

@@ -83,6 +83,25 @@ def test_acc_matches_reference_and_brute(tmp_path, k, mode):
     assert got == ref == _brute(seqs, k, mode)
 
 
+def test_acc_native_pack_every_chunk(tmp_path, monkeypatch):
+    """Each chunk of a count is packed by the native pass (native_packs
+    = chunks); under MERYL_TPU_NO_NATIVE by none, with the same counts."""
+    rng = np.random.default_rng(19)
+    seqs = _rand_seqs(rng, 60, 300) + ["ACGTN" * 30]
+    monkeypatch.delenv("MERYL_TPU_NO_NATIVE", raising=False)
+    got, ref, stats = _count_both(tmp_path, seqs, 21, chunk_len=1 << 12)
+    assert stats["chunks"] > 1 and stats["recounts"] == 0
+    assert stats["native_packs"] == stats["chunks"]
+    monkeypatch.setenv("MERYL_TPU_NO_NATIVE", "1")
+    fallback = counter.count_to_arrays_device_acc(
+        [str(tmp_path / "in.fa")], 21, mode="canonical", hpc=False,
+        chunk_len=1 << 12, expected_uniques=counter._use_device_acc(
+            [str(tmp_path / "in.fa")], 21, "cpu"), device="cpu")
+    assert counter.LAST_WIRE_STATS["native_packs"] == 0
+    assert counter.LAST_WIRE_STATS["chunks"] == stats["chunks"]
+    assert _as_dict(*fallback) == got == ref == _brute(seqs, 21)
+
+
 @pytest.mark.parametrize("k", [16, 32])
 def test_acc_allones_kmer(tmp_path, k):
     rng = np.random.default_rng(5)

@@ -73,14 +73,70 @@ def test_db_writer_bucket_files_byte_equal(tmp_path, k, labels, multiset):
         assert len(port) == 66 and port == ref
 
 
-@pytest.mark.parametrize("n", [1, 15, 16, 1000, 4096 + 7])
-def test_pack_codes_matches_reference(n):
-    rng = np.random.default_rng(n)
-    codes = rng.integers(0, 4, size=n).astype(np.uint8)
-    codes[rng.integers(0, n, size=n // 10 + 1)] = 255
-    codes[-min(n, 5):] = 255
-    for a, b in zip(km.pack_codes_2bit(codes), ref_km.pack_codes_2bit(codes)):
+def _pack_case(case):
+    """-> (codes, pad_to) of one case of the 2-bit pack."""
+    rng = np.random.default_rng(len(case))
+    kind, _, arg = case.partition("-")
+    if kind == "random":                 # short lengths, off 4 and 16
+        n = int(arg)
+        codes = rng.integers(0, 4, size=n).astype(np.uint8)
+        codes[rng.integers(0, n, size=n // 10 + 1)] = 255
+        codes[-min(n, 5):] = 255
+        return codes, None
+    if kind == "illumina":   # a 2^22 chunk of 150-base reads, 0.05 % N
+        codes = rng.integers(0, 4, size=1 << 22).astype(np.uint8)
+        codes[rng.random(len(codes)) < 0.0005] = 255
+        codes[150::151] = 255
+        return codes, None
+    if kind == "allsep":                         # n_real 0, no exception
+        return np.full(1 << 16, 255, np.uint8), None
+    if kind == "nflood":       # past the L/64 floor: the list grows
+        codes = rng.integers(0, 4, size=1 << 16).astype(np.uint8)
+        flood = rng.random(len(codes)) < 0.3
+        codes[flood] = rng.choice(np.array([4, 7, 128, 252, 255], np.uint8),
+                                  int(flood.sum()))
+        return codes, None
+    if kind == "trailsep":        # the chunker's final-chunk padding
+        codes = rng.integers(0, 4, size=5000).astype(np.uint8)
+        codes[rng.integers(0, 3000, size=40)] = 255
+        codes[3001:] = 255
+        return codes, None
+    codes = rng.integers(0, 4, size=1000).astype(np.uint8)   # "padto"
+    codes[::97] = 255
+    return codes, 1234
+
+
+PACK_CASES = ["random-1", "random-3", "random-5", "random-15", "random-16",
+              "random-17", "random-1000", "random-4103", "illumina",
+              "allsep", "nflood", "trailsep", "padto"]
+
+
+@pytest.mark.parametrize("path", ["native", "numpy"])
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_pack_codes_matches_reference(monkeypatch, case, path):
+    """The native pass and the numpy fallback each give the reference's
+    wire bit for bit: words, padded exception list, n_real."""
+    codes, pad_to = _pack_case(case)
+    if path == "numpy":
+        monkeypatch.setenv("MERYL_TPU_NO_NATIVE", "1")
+    else:
+        monkeypatch.delenv("MERYL_TPU_NO_NATIVE", raising=False)
+    before = km.PACK_STATS[path]
+    got = km.pack_codes_2bit(codes, pad_to)
+    assert km.PACK_STATS[path] == before + 1
+    want = ref_km.pack_codes_2bit(codes, pad_to)
+    for a, b in zip(got[:2], want[:2]):
+        assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+    assert got[2] == want[2]
+    L = (max(pad_to or 0, len(codes)) + 15) & ~15
+    assert len(got[0]) == L // 16
+    if case == "allsep":
+        assert got[2] == 0 and (got[1] == km.EXC_PAD).all()
+    if case == "nflood":
+        assert len(got[1]) > (L >> 6)
+    if case == "trailsep":
+        assert got[2] == 3001
 
 
 def _write_bam(path, reads):

@@ -168,7 +168,8 @@ WIRE_KEYS = ["h2d_bytes", "d2h_bytes", "bases", "scan_stall_s",
              "reader_busy_s", "t_finalize_s", "n_h2d", "n_dispatch",
              "n_fetch", "t_h2d_s", "t_dispatch_s", "t_fetch_s",
              "host_pack_s", "host_finalize_s", "t_download_s", "chunks",
-             "merges", "regrows", "recounts", "captured", "salvaged"]
+             "merges", "regrows", "recounts", "captured", "salvaged",
+             "native_packs"]
 
 
 @pytest.mark.parametrize("hatch", ["none", "recount", "salvage"])
@@ -206,6 +207,8 @@ def test_wire_stats_from_the_spans(tmp_path, monkeypatch, reads, hatch):
     # the reader thread's spans: one scan a chunk and the end of the file
     assert sp["count.reader_pack_n"] >= ws["chunks"] >= 1
     assert sp["count.reader_scan_n"] == sp["count.reader_pack_n"] + 1
+    # each chunk packed natively once, a recounted one again
+    assert ws["native_packs"] == sp["count.reader_pack_n"] + ws["recounts"]
 
 
 def test_profiler_sees_the_main_thread_spans(tmp_path, reads):
