@@ -198,6 +198,45 @@ def merge_runs(runs):
     return hi[starts], lo[starts], counts
 
 
+# runs that hold together at most this many entries go into a larger
+# run by insert_runs rather than by a merge that rewrites it
+INSERT_MAX = 1 << 12
+
+
+def insert_runs(big, small_runs):
+    """merge_runs([big] + small_runs) where the small runs hold few
+    entries: a binary search a small key and one insertion pass over
+    the big run, where the native merge copies every entry of it
+    through its staging buffers and back (a sharded count's owner
+    takes its few captured windows so: about 0.5 s an owner of 26 M
+    entries, and only in counts that captured a window)."""
+    shi, slo, sc = merge_runs(list(small_runs))
+    hi, lo, c = big
+    if not len(sc) or not len(c):
+        return merge_runs([r for r in (big, (shi, slo, sc)) if len(r[2])])
+    i0 = np.searchsorted(hi, shi, "left")
+    i1 = np.searchsorted(hi, shi, "right")
+    pos = np.fromiter((a + np.searchsorted(lo[a:b], key)
+                       for a, b, key in zip(i0, i1, slo)),
+                      np.int64, len(slo))
+    at = np.minimum(pos, len(c) - 1)
+    hit = (pos < len(c)) & (hi[at] == shi) & (lo[at] == slo)
+    new = ~hit
+    vmax = np.uint64(km.VALUE_MAX)
+    out = np.minimum(c, vmax).astype(np.uint32)
+    out[pos[hit]] = np.minimum(c[pos[hit]] + sc[hit].astype(np.uint64),
+                               vmax)
+    if new.any():
+        # each new key goes before the entry at its position
+        if hi[-1] or shi.any():
+            hi = np.insert(hi, pos[new], shi[new])
+        else:   # one-word keys: hi is zeros, left untouched until read
+            hi = np.zeros(len(hi) + int(new.sum()), np.uint64)
+        lo = np.insert(lo, pos[new], slo[new])
+        out = np.insert(out, pos[new], sc[new])
+    return hi, lo, out
+
+
 def _unique_run(hi, lo):
     """Raw (hi, lo) windows -> one sorted unique run with counts."""
     order = np.lexsort((lo, hi))
@@ -1059,7 +1098,7 @@ class _Dealer:
         self.nbases = 0
 
     def take(self, step: int, rank: int):
-        with self._lock:
+        with trace.span("shard.wait_dealer"), self._lock:
             if self._error is not None:
                 raise self._error
             if step not in self._steps:
@@ -1118,6 +1157,9 @@ def _count_members(group, paths, k: int, *, mode: str, hpc: bool,
     settled at the end.  -> (the members' counters in member order,
     their owner_parts remaining; the bases read); LAST_SHARD_STATS is
     written.  With spill_dir, member r spills to spill_dir/m<r>.
+    A member's spans (shard.wait_dealer, shard.step, shard.exchange,
+    shard.settle) are counters of its thread, summed over the members
+    into trace.LAST_SPANS.
     lockstep: the processes of a job read segments of their own, so a
     member whose process has no chunk left feeds the empty chunk (the
     keep-alive pad) until no member of the job has one (one all_reduce
@@ -1144,19 +1186,21 @@ def _count_members(group, paths, k: int, *, mode: str, hpc: bool,
             spill_dir=None if spill_dir is None
             else _os.path.join(spill_dir, f"m{m.rank}"), **shard_kw)
         step = 0
-        while True:
-            chunk = dealer.take(step, m.local)
-            if lockstep:
-                done = torch.tensor([int(chunk is None)], dtype=torch.int64,
-                                    device=m.device)
-                m.all_reduce(done, MIN)
-                if done.item():
+        with trace.thread_spans():
+            while True:
+                chunk = dealer.take(step, m.local)
+                if lockstep:
+                    done = torch.tensor([int(chunk is None)],
+                                        dtype=torch.int64, device=m.device)
+                    m.all_reduce(done, MIN)
+                    if done.item():
+                        break
+                elif chunk is None:
                     break
-            elif chunk is None:
-                break
-            sc.add_codes(pad if chunk is None else chunk)
-            step += 1
-        sc.settle()
+                sc.add_codes(pad if chunk is None else chunk)
+                step += 1
+            with trace.span("shard.settle"):
+                sc.settle()
         return sc
 
     try:

@@ -59,7 +59,7 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
-from .. import resolve_device
+from .. import resolve_device, trace
 
 SUM, MAX, MIN = "sum", "max", "min"
 _DIST_OPS = {SUM: "SUM", MAX: "MAX", MIN: "MIN"}
@@ -216,15 +216,17 @@ class LocalMember:
     def _exchange(self, t, read):
         """Post t, call read(posted) with every member's (tensor, ready
         event) once all have posted, then wait until every member's
-        reads are queued (so t may be written or freed)."""
+        reads are queued (so t may be written or freed).  Span
+        shard.exchange: the host time of one collective."""
         g = self.group
-        g._posted[self.local] = (t, _event(self.device))
-        g._wait(self.rank)
-        out = read(g._posted)
-        g._read[self.local] = _event(self.device)
-        g._wait(self.rank)
-        for ev in g._read:
-            _wait_event(self.device, ev)
+        with trace.span("shard.exchange"):
+            g._posted[self.local] = (t, _event(self.device))
+            g._wait(self.rank)
+            out = read(g._posted)
+            g._read[self.local] = _event(self.device)
+            g._wait(self.rank)
+            for ev in g._read:
+                _wait_event(self.device, ev)
         return out
 
     def _fetch(self, src, ev):
@@ -361,21 +363,22 @@ class JobMember(LocalMember):
         """Post t; once all have, the leader calls lead(posted), with
         every member's (tensor, ready event), and posts its result; then
         every member calls read(result) and waits until every member's
-        reads are queued."""
+        reads are queued.  Span shard.exchange, as LocalMember's."""
         g = self.group
-        g._posted[self.local] = (t, _event(self.device))
-        g._wait(self.rank)
-        if self.local == 0:
-            res = lead(g._posted)
-            g._shared = (res, _event(self.device))
-        g._wait(self.rank)
-        res, ev = g._shared
-        _wait_event(g.devices[0], ev)
-        out = read(res)
-        g._read[self.local] = _event(self.device)
-        g._wait(self.rank)
-        for e in g._read:
-            _wait_event(self.device, e)
+        with trace.span("shard.exchange"):
+            g._posted[self.local] = (t, _event(self.device))
+            g._wait(self.rank)
+            if self.local == 0:
+                res = lead(g._posted)
+                g._shared = (res, _event(self.device))
+            g._wait(self.rank)
+            res, ev = g._shared
+            _wait_event(g.devices[0], ev)
+            out = read(res)
+            g._read[self.local] = _event(self.device)
+            g._wait(self.rank)
+            for e in g._read:
+                _wait_event(self.device, e)
         return out
 
     def _gather(self, posted, shape):

@@ -53,6 +53,7 @@ import torch
 import torch.distributed as dist
 
 from .. import kmer as km
+from .. import trace
 from ..ops import accum
 from ..ops import multiword as mw
 from ..ops.accum import OVF_CAP
@@ -63,7 +64,9 @@ from .local_group import (GROUP_TIMEOUT, MAX, SUM, DistGroup, backend_for,
 # once it ends (publish_stats): spills and steps are equal on every
 # rank; captured_windows and recount_chunks count each rank's own
 # chunks, summed over the ranks of the process (the reference's figure
-# for the same mesh).  A process of a job writes its own members'.
+# for the same mesh); members is the process's ranks, and peer_bytes
+# the bytes of their all-to-all blocks that went to another rank.  A
+# process of a job writes its own members'.
 LAST_SHARD_STATS: dict = {}
 
 
@@ -275,6 +278,15 @@ class ShardedCounter:
         self.masked_steps = 0      # steps with a bad source masked out
         self.stats = {"spills": 0, "recount_chunks": 0,
                       "captured_windows": 0, "steps": 0}
+        # what a step's all-to-all sends to the other ranks: n - 1 of
+        # the n blocks of its (B, Wc) int64 cell grid
+        self._peer_step = (self.n - 1) * self.rpo * self.Wc * 8 \
+            * mw.num_words(self.k)
+
+    @property
+    def peer_bytes(self) -> int:
+        """Bytes this rank's all-to-alls sent to the other ranks."""
+        return self.stats["steps"] * self._peer_step
 
     def _fresh_acc(self, La: int):
         tail = () if mw.num_words(self.k) == 1 else (2,)
@@ -302,19 +314,20 @@ class ShardedCounter:
         Pipelined 1 deep: the previous step's summed stats are resolved
         after this step is dispatched, so hatch handling surfaces one
         call late (or at finalize), always before any result."""
-        if not isinstance(codes, tuple):
-            codes = self.prepack(codes)
-        raw, packed2, exc, n_real, _ = codes
-        out = routed_step(
-            torch.from_numpy(packed2.view(np.int32)).to(self.device),
-            torch.from_numpy(exc).to(self.device), n_real, self.cfg,
-            self.group)
-        self.stats["steps"] += 1
-        self._pending.append((out, raw))
-        if len(self._pending) > 1:
-            self._resolve_pending(keep_last=True)
-        if len(self._staged) >= self.MERGE_EVERY:
-            self._merge_staged()
+        with trace.span("shard.step"):
+            if not isinstance(codes, tuple):
+                codes = self.prepack(codes)
+            raw, packed2, exc, n_real, _ = codes
+            out = routed_step(
+                torch.from_numpy(packed2.view(np.int32)).to(self.device),
+                torch.from_numpy(exc).to(self.device), n_real, self.cfg,
+                self.group)
+            self.stats["steps"] += 1
+            self._pending.append((out, raw))
+            if len(self._pending) > 1:
+                self._resolve_pending(keep_last=True)
+            if len(self._staged) >= self.MERGE_EVERY:
+                self._merge_staged()
 
     def _resolve_pending(self, keep_last: bool = False) -> None:
         pend = self._pending[:-1] if keep_last else self._pending
@@ -561,17 +574,25 @@ class ShardedCounter:
         union-summed.  No collective, so any thread may drain the ranks'
         parts one owner at a time (with spill_dir, host peak is one
         owner's range)."""
-        from ..counter import merge_runs
+        from ..counter import INSERT_MAX, insert_runs, merge_runs
         if self._owned_extras is None:
             raise RuntimeError("owner_parts() runs once, after settle()")
         extras, self._owned_extras = self._owned_extras, None
-        acc_runs = self._download_acc() if self._acc_nonempty() else {}
-        self._acc = None
-        runs = [self._load_run(r) for r in self._spills.pop(self.rank, [])]
-        runs += list(acc_runs.values()) + extras
-        if runs:
-            hi, lo, c = merge_runs(runs)
-            yield (self.rank, hi, lo, c)
+        with trace.span("shard.owner_parts"):
+            acc_runs = self._download_acc() if self._acc_nonempty() else {}
+            self._acc = None
+            runs = [self._load_run(r)
+                    for r in self._spills.pop(self.rank, [])]
+            runs += list(acc_runs.values()) + extras
+            runs.sort(key=lambda r: len(r[2]), reverse=True)
+            if len(runs) > 1 and sum(len(r[2]) for r in runs[1:]) \
+                    <= INSERT_MAX:
+                # a few captured windows beside the accumulator's run
+                part = insert_runs(runs[0], runs[1:])
+            else:
+                part = merge_runs(runs) if runs else None
+        if part is not None:
+            yield (self.rank,) + part
 
     def iter_finalized_parts(self):
         """settle, then owner_parts: a generator, so a caller can stream
@@ -623,4 +644,6 @@ def publish_stats(counters) -> None:
     """LAST_SHARD_STATS of a count over this process's ranks
     `counters`."""
     LAST_SHARD_STATS.clear()
-    LAST_SHARD_STATS.update(combine_stats([c.stats for c in counters]))
+    LAST_SHARD_STATS.update(combine_stats([c.stats for c in counters]),
+                            members=len(counters),
+                            peer_bytes=sum(c.peer_bytes for c in counters))

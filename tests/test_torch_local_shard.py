@@ -66,6 +66,16 @@ def _mesh(n):
     return Mesh(np.array(jax.devices()[:n]), ("d",))
 
 
+def _hatches(stats, n):
+    """LAST_SHARD_STATS' hatch counters (the reference's keys), after
+    checking the port's own two: n members, and peer_bytes, zero only
+    when one member sends nothing to another."""
+    assert stats["members"] == n
+    assert (stats["peer_bytes"] > 0) == (n > 1 and stats["steps"] > 0)
+    return {key: v for key, v in stats.items()
+            if key not in ("members", "peer_bytes")}
+
+
 # ------------------------------------------------- the group's collectives
 
 @pytest.mark.parametrize("n", [1, 3, 4])
@@ -301,7 +311,7 @@ def test_count_to_arrays_sharded_matches_reference(tmp_path, name, n):
         spill_dir=str(tmp_path / "ref_spills") if spill else None, **kw)
     _same(got, want)
     assert got[2].dtype == np.uint32
-    assert stats == ref_sc.LAST_SHARD_STATS
+    assert _hatches(stats, n) == ref_sc.LAST_SHARD_STATS
     if name in HATCH:
         assert stats[HATCH[name]] > 0
     if spill:  # a member spills into a directory of its own
@@ -359,7 +369,7 @@ def test_cli_eight_members_match_reference_cli(tmp_path, monkeypatch,
     out = str(tmp_path / "port.meryl")
     assert cli.main(["count", "k=21", fa, *words, "output", out,
                      "device=cpu"]) == 0
-    assert sc.LAST_SHARD_STATS == ref_stats
+    assert _hatches(sc.LAST_SHARD_STATS, 8) == ref_stats
     assert sc.LAST_SHARD_STATS["steps"] >= 1
     assert sc.LAST_SHARD_STATS["recount_chunks"] > 0
     if words:
