@@ -32,16 +32,28 @@ repeat kmers — reference documentation/source/reference.rst:49-53,89-91).
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import threading
 
 import numpy as np
 
+from . import _build
 from . import kmer as km
 
 MAGIC_INDEX = "merylTpuIndex.v01"
 MAGIC_BUCKET = b"MTPUKMB1"
 NUM_FILES = 64
+
+# DBs (MerylDB.write) and buckets (MerylDBWriter.add_bucket) written by
+# each path of _write_files, since the process began
+WRITE_STATS = {"native": 0, "numpy": 0}
+_stats_lock = threading.Lock()
+_write_lib = None        # the native writer; False once it failed to build
+# a DB of fewer entries is written on the calling thread: below it the
+# threads' start costs about what they save (tools/ab_dbwrite.py --sweep)
+THREADED_MIN = 1 << 15
 
 
 def bucket_name(ff: int) -> str:
@@ -91,6 +103,127 @@ def sparse_histogram(counts: np.ndarray):
         return np.zeros(0, np.uint64), np.zeros(0, np.uint64)
     vals, occ = np.unique(counts, return_counts=True)
     return vals.astype(np.uint64), occ.astype(np.uint64)
+
+
+def _bucket_flags(has_labels: bool, label_bits: int) -> int:
+    """A bucket's flags word: bit 0 = labels present; bits 8..15 =
+    stored label width in bits (0 means 64 for pre-width files)."""
+    return 1 | ((label_bits & 0xFF) << 8) if has_labels else 0
+
+
+def _native_writer():
+    """The native writer (csrc/db_write.cpp), built at first use, or None
+    when it cannot be built or MERYL_TPU_NO_NATIVE is set."""
+    global _write_lib
+    if os.environ.get("MERYL_TPU_NO_NATIVE"):
+        return None
+    if _write_lib is None:
+        try:
+            lib = _build.load("db_write", ".cpp")
+        except (OSError, RuntimeError):
+            _write_lib = False
+        else:
+            p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+            lib.mt_db_write.argtypes = [ctypes.c_char_p, i64, i64, p, p, p,
+                                        i32, p, ctypes.c_uint64, i32, i32,
+                                        ctypes.c_uint32, i32]
+            lib.mt_db_write.restype = p
+            lib.mt_db_info.argtypes = [p, p]
+            lib.mt_db_info.restype = None
+            lib.mt_db_finish.argtypes = [p, p, p]
+            lib.mt_db_finish.restype = None
+            _write_lib = lib
+    return _write_lib or None
+
+
+def _count_words(counts) -> np.ndarray:
+    """counts as contiguous u32 or u64 words whose low 32 bits are the
+    values np.uint32 casts them to (4- and 8-byte integers are viewed,
+    not copied)."""
+    counts = np.asarray(counts)
+    dt = counts.dtype
+    if dt.kind in "iu" and dt.isnative and dt.itemsize in (4, 8):
+        return np.ascontiguousarray(counts).view(
+            np.uint32 if dt.itemsize == 4 else np.uint64)
+    return np.ascontiguousarray(counts, np.uint32)
+
+
+def _write_files(path: str, ff, k: int, hi, lo, counts, labels,
+                 label_bits: int):
+    """Write bucket files into the directory `path`: with ff None all 64
+    from sorted entries (split by 6-bit prefix), else every entry to
+    bucket ff.  One native pass (csrc/db_write.cpp, from several threads
+    for a DB of THREADED_MIN entries or more) or, where it is not built,
+    numpy.  -> ((values, occurrences), statistics) of the counts as
+    stored (u32)."""
+    hi = np.ascontiguousarray(hi, dtype=np.uint64)
+    lo = np.ascontiguousarray(lo, dtype=np.uint64)
+    if labels is not None:
+        labels = np.ascontiguousarray(labels, dtype=np.uint64)
+    lib = _native_writer()
+    with _stats_lock:
+        WRITE_STATS["numpy" if lib is None else "native"] += 1
+    if lib is None:
+        return _write_numpy(path, ff, k, hi, lo, counts, labels, label_bits)
+    return _write_native(lib, path, ff, k, hi, lo, _count_words(counts),
+                         labels, label_bits)
+
+
+def _write_numpy(path, ff, k, hi, lo, counts, labels, label_bits):
+    """_write_files in numpy (what MERYL_TPU_NO_NATIVE selects)."""
+    counts = np.ascontiguousarray(counts, dtype=np.uint32)
+    if labels is not None:
+        labels = labels & label_mask(label_bits)
+    if ff is None:  # split by 6-bit prefix (monotonic in sorted order)
+        pref = km.prefix6_from_hilo(hi, lo, k)
+        bounds = np.searchsorted(pref, np.arange(NUM_FILES + 1,
+                                                 dtype=np.uint32))
+        parts = [(f, int(bounds[f]), int(bounds[f + 1]))
+                 for f in range(NUM_FILES)]
+    else:
+        parts = [(ff, 0, len(lo))]
+    for f, b, e in parts:
+        MerylDB._write_bucket(os.path.join(path, bucket_name(f)), k,
+                              hi[b:e], lo[b:e], counts[b:e],
+                              labels[b:e] if labels is not None else None,
+                              label_bits)
+    return sparse_histogram(counts), compute_stats(counts)
+
+
+def _write_native(lib, path, ff, k, hi, lo, counts, labels, label_bits):
+    """_write_files in one call of the native writer, which releases the
+    GIL; counts as _count_words gives them."""
+    n = len(lo)
+    if len(hi) != n or len(counts) != n or (
+            labels is not None and len(labels) != n):
+        raise ValueError(f"{path}: hi, lo, counts and labels differ in "
+                         f"length ({len(hi)}, {n}, {len(counts)}, "
+                         f"{None if labels is None else len(labels)})")
+    threads = 1
+    if ff is None and n >= THREADED_MIN:
+        threads = min(len(os.sched_getaffinity(0)), NUM_FILES)
+    h = lib.mt_db_write(
+        os.fsencode(path), -1 if ff is None else int(ff), n, hi.ctypes.data,
+        lo.ctypes.data, counts.ctypes.data, counts.itemsize,
+        None if labels is None else labels.ctypes.data,
+        int(label_mask(label_bits)),
+        np.dtype(label_dtype(label_bits)).itemsize, int(k),
+        _bucket_flags(labels is not None, label_bits), threads)
+    if not h:
+        raise MemoryError(f"{path}: the DB writer could not start")
+    info = np.zeros(5, np.uint64)
+    lib.mt_db_info(h, info.ctypes.data)
+    err, failed, n_unique, n_total, n_hist = (int(x) for x in info)
+    if err:
+        lib.mt_db_finish(h, None, None)
+        raise OSError(err, os.strerror(err),
+                      os.path.join(path, bucket_name(failed))
+                      if failed < NUM_FILES else path)
+    vals = np.empty(n_hist, np.uint64)
+    occ = np.empty(n_hist, np.uint64)
+    lib.mt_db_finish(h, vals.ctypes.data, occ.ctypes.data)
+    return (vals, occ), {"numUnique": n_unique, "numDistinct": n,
+                         "numTotal": n_total}
 
 
 class MerylDB:
@@ -191,37 +324,20 @@ class MerylDB:
         label_bits (meryl2 -l) selects the stored label width: labels
         are masked to that many bits and packed into the smallest
         integer type that holds them (width selection affects DB size,
-        as in the reference's kmer::setLabelSize).
+        as in the reference's kmer::setLabelSize).  The bucket files,
+        the histogram and the statistics come from one pass
+        (_write_files); histogram= replaces its histogram.
         """
-        hi = np.ascontiguousarray(hi, dtype=np.uint64)
-        lo = np.ascontiguousarray(lo, dtype=np.uint64)
-        counts = np.ascontiguousarray(counts, dtype=np.uint32)
         if label_bits == 0:
             labels = None  # -l 0: a 0-wide label is identically 0
-        if labels is not None:
-            labels = np.ascontiguousarray(labels, dtype=np.uint64)
-            labels = labels & label_mask(label_bits)
         os.makedirs(path, exist_ok=True)
-
-        # split by 6-bit prefix (monotonic in sorted order)
-        pref = km.prefix6_from_hilo(hi, lo, k)
-        bounds = np.searchsorted(pref, np.arange(NUM_FILES + 1, dtype=np.uint32))
-        for ff in range(NUM_FILES):
-            b, e = int(bounds[ff]), int(bounds[ff + 1])
-            cls._write_bucket(os.path.join(path, bucket_name(ff)), k,
-                              hi[b:e], lo[b:e], counts[b:e],
-                              labels[b:e] if labels is not None else None,
-                              label_bits)
-
-        if histogram is None:
-            hvals, hocc = sparse_histogram(counts)
-        else:
-            hvals, hocc = histogram
+        hist, stats = _write_files(path, None, k, hi, lo, counts, labels,
+                                   label_bits)
+        hvals, hocc = hist if histogram is None else histogram
         with open(os.path.join(path, "histogram.tsv"), "w") as f:
             for v, o in zip(hvals.tolist(), hocc.tolist()):
                 f.write(f"{v}\t{o}\n")
 
-        stats = compute_stats(counts)
         meta = {
             "magic": MAGIC_INDEX,
             "k": int(k),
@@ -241,14 +357,10 @@ class MerylDB:
     @staticmethod
     def _write_bucket(p: str, k: int, hi, lo, counts, labels=None,
                       label_bits: int = 64):
-        # flags word: bit 0 = labels present; bits 8..15 = stored label
-        # width in bits (0 means 64 for pre-width files)
-        flags = 0
-        if labels is not None:
-            flags = 1 | ((label_bits & 0xFF) << 8)
         with open(p, "wb") as f:
             f.write(MAGIC_BUCKET)
-            np.array([k, flags], dtype=np.uint32).tofile(f)
+            np.array([k, _bucket_flags(labels is not None, label_bits)],
+                     dtype=np.uint32).tofile(f)
             np.array([len(lo)], dtype=np.uint64).tofile(f)
             np.ascontiguousarray(lo, np.uint64).tofile(f)
             np.ascontiguousarray(hi, np.uint64).tofile(f)
@@ -333,25 +445,22 @@ class MerylDBWriter:
         os.makedirs(path, exist_ok=True)
 
     def add_bucket(self, ff: int, hi, lo, counts, labels=None):
+        if not 0 <= ff < NUM_FILES:
+            raise ValueError(f"bucket {ff} out of 0..{NUM_FILES - 1}")
         if ff in self._written:
             raise ValueError(f"bucket {ff} written twice")
         self._written.add(ff)
-        counts = np.ascontiguousarray(counts, dtype=np.uint32)
         if self.label_bits == 0:
             labels = None  # -l 0: a 0-wide label is identically 0
         if labels is not None:
-            labels = np.ascontiguousarray(labels, np.uint64) & \
-                label_mask(self.label_bits)
             self._has_labels = True
-        MerylDB._write_bucket(os.path.join(self.path, bucket_name(ff)),
-                              self.k, hi, lo, counts, labels,
-                              self.label_bits)
-        vals, occ = sparse_histogram(counts)
+        (vals, occ), stats = _write_files(self.path, ff, self.k, hi, lo,
+                                          counts, labels, self.label_bits)
         for v, o in zip(vals.tolist(), occ.tolist()):
             self._hist[v] = self._hist.get(v, 0) + o
-        self._n_distinct += len(counts)
-        self._n_total += int(counts.astype(np.uint64).sum())
-        self._n_unique += int((counts == 1).sum())
+        self._n_distinct += stats["numDistinct"]
+        self._n_total += stats["numTotal"]
+        self._n_unique += stats["numUnique"]
 
     def finalize(self) -> "MerylDB":
         for ff in range(NUM_FILES):

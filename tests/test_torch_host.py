@@ -40,14 +40,22 @@ def _files(path):
     return out
 
 
+@pytest.mark.parametrize("path", ["native", "numpy"])
 @pytest.mark.parametrize("k,labels,multiset", [(15, None, False),
                                                (21, None, False),
                                                (33, None, True),
                                                (64, 16, False),
                                                (21, 64, False)])
-def test_db_writer_bucket_files_byte_equal(tmp_path, k, labels, multiset):
-    """MerylDBWriter bucket at a time and MerylDB.write whole: every
-    file of the DB equal byte for byte to the reference's."""
+def test_db_writer_bucket_files_byte_equal(tmp_path, monkeypatch, k, labels,
+                                           multiset, path):
+    """MerylDBWriter bucket at a time and MerylDB.write whole, through the
+    native writer and the numpy fallback: every file of the DB equal byte
+    for byte to the reference's."""
+    if path == "numpy":
+        monkeypatch.setenv("MERYL_TPU_NO_NATIVE", "1")
+    else:
+        monkeypatch.delenv("MERYL_TPU_NO_NATIVE", raising=False)
+    before = db.WRITE_STATS[path]
     rng = np.random.default_rng(k)
     hi, lo = _sorted_kmers(rng, 5000, k)
     counts = rng.integers(1, 70, size=len(lo)).astype(np.uint32)
@@ -67,6 +75,8 @@ def test_db_writer_bucket_files_byte_equal(tmp_path, k, labels, multiset):
         mod.MerylDB.write(str(tmp_path / f"{name}_all"), k, hi, lo, counts,
                           multiset=multiset, labels=lab,
                           label_bits=labels if labels else 64)
+    # 64 buckets through add_bucket (4 given, 60 by finalize), one DB
+    assert db.WRITE_STATS[path] == before + 65
     for kind in ("w", "all"):
         port, ref = (_files(str(tmp_path / f"{n}_{kind}"))
                      for n in ("port", "ref"))
