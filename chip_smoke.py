@@ -44,18 +44,14 @@ Phases, each printing its lines; any failure exits non-zero:
      (the final union-sum of the batch DBs) were launched; then a
      resume from a manifest that says batch 0 is done, with that
      batch's DB kept: an equal DB, and batch 0 not counted again
- 10. count-suffix and the compacted chunk path on a subsample of the
-     reads (the host sort path at the production chunk), against a numpy
-     brute force; the host path's peak device bytes a base beside the
-     plan's model
+ 10. count-suffix and the host sort path on a subsample of the reads
+     (at the production chunk), against a numpy brute force; the host
+     path's peak device bytes a base beside the plan's model
  11. `-C`: the plan on stderr, the card's own memory in it, nothing
      counted
  12. accumulator memory: the device-accumulator count's peak device
      bytes at two input sizes, beside the admission budget's bytes a
      unique
- 13. download A/B: the accumulator's three downloads (pageable int64,
-     pinned int32, gap-packed) in turns on phase 6's input, each
-     decoding to the same arrays, ms and GB/s an arm
  14. lookup: every meryl-lookup mode through the CLI with phase 6's
      genome as the assembly and 20,000 reads (and as many mates) of
      phase 6's FASTQ, against DBs a and b (b with -min 2 for -include /
@@ -64,13 +60,10 @@ Phases, each printing its lines; any failure exits non-zero:
      decoded DBs; the extraction kernel's launches over these runs, each
      run's own above 0 (position-lookup's DB is counted before they
      start); the table's device bytes beside estimate_memory_bytes; then
-     values_bulk forced through each regime (binary search, routed join,
-     grid join, values_join, values_host, segmented grid) on 2^23
-     queries, half hits, against DB a and a 2^16-entry table, Mq/s a
-     regime; the grid join again on 2^23 uniform queries, where every
-     slab must resolve on the card (a half-hit row whose slabs the router
-     all refused prints as the host search, with the refused slab's
-     coarse-row counts against capA)
+     2^23 queries, half hits, against DB a and a 2^16-entry table through
+     each regime (values_bulk's binary search on the device-resident
+     table, values_host, and the segmented grid join on the table held
+     past a device budget forced low), Mq/s a regime
  15. meryl2 (run before 14): phase 6's and phase 8's
      read sets counted through meryl2-torch with labels #1 and #2 (equal
      to the v1 counts), then actions over the two labelled DBs --
@@ -930,8 +923,8 @@ def _with_env(env, fn):
 
 
 def phase_suffix(torch, cli, counter, MerylDB, fq, reads, workdir):
-    """count-suffix= and MERYL_TPU_COMPACT=device: the host sort path at
-    the production chunk, on the first 60,000 reads."""
+    """count-suffix= and the host sort path at the production chunk, on
+    the first 60,000 reads."""
     n_sub = 60_000
     sub = _head_fastq(fq, n_sub, os.path.join(workdir, "sub.fq"))
     suffix = "ACGT"
@@ -962,22 +955,15 @@ def phase_suffix(torch, cli, counter, MerylDB, fq, reads, workdir):
 
     sfx = [f"count-suffix={suffix}"]
     w1, _ = count("sfx", sfx, {}, want_k, want_c)
-    w2, _ = count("sfx_compact", sfx, {"MERYL_TPU_COMPACT": "device"},
-                  want_k, want_c)
-    host = {"MERYL_TPU_DEVICE_ACC": "0"}
-    w3, peak = count("host", [], host, all_k, all_c)
-    w4, peak_c = count("host_compact", [],
-                       dict(host, MERYL_TPU_COMPACT="device"), all_k, all_c)
+    w3, peak = count("host", [], {"MERYL_TPU_DEVICE_ACC": "0"}, all_k, all_c)
     model = counter.device_bytes_per_base(21)
     print(f"count-suffix: k=21 count-suffix={suffix} on {n_sub} reads "
           f"({n_sub * READ_LEN} bases): {len(want_k)} of {len(all_k)} "
-          f"k-mers, equal to brute force in {w1:.3f} s; with "
-          f"MERYL_TPU_COMPACT=device equal in {w2:.3f} s")
+          f"k-mers, equal to brute force in {w1:.3f} s")
     print(f"host sort path: the same reads with MERYL_TPU_DEVICE_ACC=0 equal "
           f"to brute force in {w3:.3f} s, peak {peak} B = "
           f"{peak / CHUNK:.1f} B a base of a 2^22 chunk (the plan's model: "
-          f"{model}); with MERYL_TPU_COMPACT=device equal in {w4:.3f} s, "
-          f"peak {peak_c} B = {peak_c / CHUNK:.1f} B a base")
+          f"{model})")
     if peak > 2 * model * CHUNK:
         raise AssertionError("the host sort path holds more than twice the "
                              "plan's device bytes a base")
@@ -1031,22 +1017,6 @@ def phase_acc_memory(torch, cli, counter, accum, fq, peak_full, workdir):
           f"admission budget counts {budget} B a budgeted unique against "
           f"{counter.acc_cap_bytes('cuda')} B")
     return peak_half
-
-
-def phase_download_ab(ab_download, fq):
-    print("download A/B (finalize of a device-accumulator count of the "
-          "count path's input, arms in turns; turn 0 of the pinned arms "
-          "allocates the pinned buffer):")
-    recs = ab_download.run([fq], 21, turns=3)
-    for arm in ab_download.ARMS:
-        ms = sorted(r["download_ms"] for r in recs if r["arm"] == arm)
-        fin = sorted(r["t_finalize_s"] for r in recs if r["arm"] == arm)
-        r0 = next(r for r in recs if r["arm"] == arm)
-        print(f"download {arm}: {r0['d2h_bytes']} B, download "
-              f"{ms[0]:.1f}-{ms[-1]:.1f} ms "
-              f"({r0['d2h_bytes'] / ms[-1] / 1e6:.2f}-"
-              f"{r0['d2h_bytes'] / ms[0] / 1e6:.2f} GB/s), finalize "
-              f"{fin[0]:.3f}-{fin[-1]:.3f} s")
 
 
 # ------------------------------------------------------------- lookup
@@ -1319,51 +1289,22 @@ def _lookup_breakdown(torch, lookup_cli, asm, db_a, workdir):
           f"and writing; {busy}")
 
 
-def _refused_slab(q, k, cfg, slab):
-    """Why the router refused a slab: the coarse-row counts of the first
-    slab (the top b1 bits of each key, numpy, not the router) against
-    capA, and the mean row of each eighth of the key space over the
-    planner's uniform mean."""
-    b1, capA = cfg["b1"], cfg["capA"]
-    first = q[:slab]
-    rows = np.bincount((first >> np.uint64(2 * k - b1)).astype(np.int64),
-                       minlength=1 << b1)
-    lam = len(first) / (1 << b1)
-    return dict(capA=capA, mean_row=lam, max_row=int(rows.max()),
-                rows_over_capA=int((rows > capA).sum()),
-                eighths_over_mean=[round(float(x) / lam, 3) for x in
-                                   rows.reshape(8, -1).mean(axis=1)])
-
-
 def _time_regimes(torch, lookup, table_fn, keys, counts, label):
-    """values_bulk forced through each regime in turn on REGIME_Q
-    queries (half hits), each held against the brute force; Mq/s of the
-    steady calls (a warm-up call first builds the regime's layout).  The
-    grid join runs again on uniform queries, the traffic its planner
-    sizes the coarse rows for, and must resolve them on the card."""
+    """Each regime in turn on REGIME_Q queries (half hits), each held
+    against the brute force; Mq/s of the steady calls (a warm-up call
+    first builds the regime's layout)."""
     rng = np.random.default_rng(SEED + 14)
-    Q, k = REGIME_Q, 21
+    Q = REGIME_Q
     q = np.concatenate([keys[rng.integers(0, len(keys), Q // 2)],
                         rng.integers(0, 1 << 42, Q - Q // 2, dtype=np.uint64)])
     rng.shuffle(q)
-    qu = rng.integers(0, 1 << 42, Q, dtype=np.uint64)
-
-    def on_card(x):
-        return torch.from_numpy((x ^ np.uint64(1 << 63)).view(np.int64)).cuda()
-    key, key_u = on_card(q), on_card(qu)
-    want, want_u = _np_values(keys, counts, q), _np_values(keys, counts, qu)
+    key = torch.from_numpy((q ^ np.uint64(1 << 63)).view(np.int64)).cuda()
+    want = _np_values(keys, counts, q)
     valid = torch.ones(Q, dtype=torch.bool, device="cuda")
-    never, always = 1 << 62, 1
-    forced = {
-        "binary search": dict(JOIN_MIN_Q=never),
-        "routed join": dict(BACJ_MIN_N=never, JOIN_MIN_Q=always,
-                            JOIN_MIN_N=always),
-        "grid join": dict(BACJ_MIN_N=always, JOIN_MIN_Q=always),
-    }
     t = table_fn({})
     res = {}
 
-    def timed(name, fn, want=want):
+    def timed(name, fn):
         """A first call (it builds the regime's layout), then three timed
         calls, or one where the first took more than 2 s."""
         lookup.reset_stats()
@@ -1383,35 +1324,17 @@ def _time_regimes(torch, lookup, table_fn, keys, counts, label):
         res[name] = dict(mqs=[Q / w / 1e6 for w in walls], first_s=first,
                          stats={a: b for a, b in lookup.STATS.items() if b})
         return res[name]["stats"]
-    for name, attrs in forced.items():
-        for a, v in attrs.items():
-            setattr(t, a, v)
-        timed(name, lambda: t.values_bulk(key, valid))
-        if name == "grid join":
-            uni = timed("grid join, uniform queries",
-                        lambda: t.values_bulk(key_u, valid), want_u)
-            if not uni.get("bacj_slabs") or uni.get("bacj_rejected_slabs"):
-                raise AssertionError(f"{label}: the router refused a slab of "
-                                     f"uniform queries")
-        for a in attrs:
-            delattr(t, a)
-    if not isinstance(t._bacj, dict) or t._bacj["segments"] != 1:
-        raise AssertionError(f"{label}: the grid join did not run whole")
-    if not res["grid join"]["stats"].get("bacj_slabs"):
-        # every slab fell back whole: the host search answered the row
-        res["grid join"]["note"] = (
-            "every slab refused by the router, so the host search answered: "
-            + json.dumps(_refused_slab(q, k, t._bacj["cfg"], t.BACJ_SLAB)))
-    timed("values_join", lambda: t.values_join(key, valid))
+    bs = timed("binary search", lambda: t.values_bulk(key, valid))
+    if not bs.get("bsearch_calls") or t._bacj is not None:
+        raise AssertionError(f"{label}: the binary search did not answer")
     zeros = np.zeros(Q, np.uint64)
     timed("values_host", lambda: t.values_host(zeros, q))
     # the segmented grid: the table past a device budget forced low, the
     # grid cap a third of the whole grid's bytes
-    cap = t._bacj["cfg"]["mem"] / 3 / 1e9
+    cap = t._build_bacj()["cfg"]["mem"] / 3 / 1e9
     env = {"MERYL_TPU_LOOKUP_DEVICE_GB": "0.000001",
            "MERYL_TPU_BACJ_CAP_GB": repr(cap)}
     ts = table_fn(env)
-    ts.BACJ_MIN_N = ts.JOIN_MIN_Q = always
     seg = timed("segmented grid", lambda: _with_env(
         env, lambda: ts.values_bulk(key, valid)))
     if ts._device_resident or ts._bacj["segments"] < 2 \
@@ -1422,11 +1345,9 @@ def _time_regimes(torch, lookup, table_fn, keys, counts, label):
     for name, m in res.items():
         print(f"lookup regime {label}, {name}: "
               + ", ".join(f"{x:.2f}" for x in m["mqs"])
-              + f" Mq/s ({Q} queries, "
-              + ("uniform" if "uniform" in name else "half hits")
-              + f"; first call {m['first_s']:.3f} s incl. the layout build); "
-              "STATS " + json.dumps(m["stats"], sort_keys=True)
-              + (f"; {m['note']}" if "note" in m else ""))
+              + f" Mq/s ({Q} queries, half hits; first call "
+              f"{m['first_s']:.3f} s incl. the layout build); STATS "
+              + json.dumps(m["stats"], sort_keys=True))
     return res
 
 
@@ -2190,7 +2111,7 @@ def main():
     from meryl_tpu_torch.ops import accum, extract_cuda, rowsort
     from meryl_tpu_torch.ops import extract as ext
     from meryl_tpu_torch.ops import multiword as mw
-    from meryl_tpu_torch.tools import ab_download, ab_extract, ab_passfloor
+    from meryl_tpu_torch.tools import ab_extract, ab_passfloor
     from meryl_tpu_torch.tools import position_lookup
     from meryl_tpu_torch.v2 import cli as v2cli
     from meryl_tpu_torch.v2 import engine
@@ -2216,7 +2137,6 @@ def main():
         phase_suffix(torch, cli, counter, MerylDB, fq, reads, workdir)
         phase_configure(torch, cli, counter, fq, workdir)
         phase_acc_memory(torch, cli, counter, accum, fq, peak, workdir)
-        phase_download_ab(ab_download, fq)
         # phase 15 runs before 14, whose trace would slow it; its own
         # trace runs in a process of its own
         m2_ext, m2_sort = phase_meryl2(

@@ -70,14 +70,6 @@ def _sort_rowlen(chunk_len: int) -> int | None:
     return r
 
 
-def _compact_device() -> bool:
-    """MERYL_TPU_COMPACT=device (read at call time): the host sort path
-    compacts each chunk's unique entries on the device and downloads
-    only that prefix, instead of the whole sorted chunk with its run
-    starts."""
-    return _os.environ.get("MERYL_TPU_COMPACT", "host") == "device"
-
-
 def _parse_suffix(count_suffix, k: int):
     """count-suffix string -> (bits, length), or None."""
     if not count_suffix:
@@ -131,20 +123,13 @@ def _count_chunk(chunk, k: int, mode: str, device, suffix=None):
     key, valid = extract_cuda.extract_kmers_packed(packed2, exc, n_real,
                                                    k, mode)
     valid = _suffix_filter(key, valid, suffix, k)
-    if _compact_device():
-        return cnt.sort_count_compacted(key, valid, k), None, k, True
     rowlen = _sort_rowlen(L)
-    return cnt.sort_starts(key, valid, k, rowlen), rowlen, k, False
+    return cnt.sort_starts(key, valid, k, rowlen), rowlen, k
 
 
-def _finish_chunk(result, rowlen, k, compacted=False):
+def _finish_chunk(result, rowlen, k):
     """Device result -> LIST of host (hi, lo, counts-u64) sorted unique
     triples, one per sort row (rows are sorted independently)."""
-    if compacted:
-        ukey, counts, n_unique = result
-        n = int(n_unique)
-        hi, lo = mw.to_hilo(ukey[:n].cpu().numpy(), k)
-        return [(hi, lo, counts[:n].cpu().numpy().astype(np.uint64))]
     skey, start, n_invalid = result
     n_inv = n_invalid.cpu().numpy() if rowlen else int(n_invalid)
     (keys,), c, idx = cnt.host_rle_finish(
@@ -265,13 +250,6 @@ def _to_host(x: torch.Tensor) -> np.ndarray:
     return x.cpu().numpy()
 
 
-# whether the accumulator download is gap-packed when MERYL_TPU_PACK_D2H
-# is unset.  Dense: on an H100 the pinned dense download is a few ms of
-# copy and the packed one's numpy decode costs more than its smaller
-# copy saves (PERF.md, the download A/B; tools/ab_download.py).
-PACK_D2H_DEFAULT = False
-
-
 def prepack(codes: np.ndarray, chunk_len: int):
     """Pad one chunk to chunk_len and 2-bit-pack it:
     -> (codes, packed2, exc, n_real, n_orig), what
@@ -330,11 +308,9 @@ class DeviceAccCounter:
       * the all-ones k-mer (real when 2k % 32 == 0) is counted by a
         device scalar and appended at finalize
 
-    The final download is dense (keys as they are, counts narrowed to
-    32 bits, one buffer through pinned host memory) or gap-packed
-    (ops/accum.pack_for_download, 2k <= 64 only: one 32-bit word a
-    unique); MERYL_TPU_PACK_D2H=1/0 chooses, PACK_D2H_DEFAULT
-    otherwise.  Both decode to the same arrays.
+    The final download is dense: the used entries' keys as they are
+    and their counts narrowed to 32 bits, in one device buffer that
+    crosses through pinned host memory in one copy (download).
     """
 
     def __init__(self, k: int, mode: str, chunk_len: int,
@@ -606,18 +582,8 @@ class DeviceAccCounter:
 
     def download(self):
         """The accumulator as one sorted unique (hi, lo, counts-u64)
-        run: gap-packed when 2k <= 64 and MERYL_TPU_PACK_D2H (default
-        PACK_D2H_DEFAULT) allows, else (or when the packed path bows
-        out) dense."""
-        lmax = self.download_lmax()
-        pack = _os.environ.get("MERYL_TPU_PACK_D2H",
-                               "1" if PACK_D2H_DEFAULT else "0") != "0"
-        run = None
-        if pack and 2 * self.k <= 64:
-            run = self._download_packed(lmax)
-        if run is None:  # k > 32, knob off, or exceptions overflowed
-            run = self._download_dense(lmax)
-        return run
+        run (_download_dense)."""
+        return self._download_dense(self.download_lmax())
 
     def _download_dense(self, lmax: int):
         """Dense download: the used entries (count > 0) are compacted on
@@ -640,97 +606,6 @@ class DeviceAccCounter:
             hi, lo = mw.to_hilo(host[:nk].view(np.int64).reshape(
                 (n,) + self._tail()), self.k)
             return hi, lo, host[nk:].view(np.uint32).astype(np.uint64)
-
-    def _download_packed(self, lmax: int):
-        """Gap-packed download (ops/accum.pack_for_download_fused): one
-        32-bit word a unique in place of a key and a count, in ONE
-        blocking fetch.  Column 0 of each row crosses dense (the cumsum
-        base); exceptions (a gap or count that does not fit) are
-        re-applied by position; rows whose exceptions overflow the
-        capture arrays are downloaded dense.  Returns None when too
-        many rows overflow or an exception lies past the downloaded
-        prefix: the caller then downloads dense, so this path is exact
-        or absent, never approximate."""
-        key, counts = self._acc
-        B, EC = self.B, accum.EXC_ROW_CAP
-        P = 1 if self.k <= 16 else 2
-        blob = self._fetch(self._dispatch(
-            accum.pack_for_download_fused, key, counts, self.k,
-            self._bases_seen, lmax)).view(np.uint32)
-        offs = np.cumsum([B * lmax] + [B] * (3 + P)
-                         + [B * EC] * (2 + P))[:-1]
-        packed_f, gbits_f, nexc_f, headc_f, *rest = np.split(blob, offs)
-        headp_f = rest[:P]
-        exccol_f, exccnt_f = rest[P], rest[P + 1]
-        excp_f = rest[P + 2:]
-        packed = packed_f.reshape(B, lmax)
-        n_exc_row = nexc_f.astype(np.int32)
-        # rows whose exceptions overflow the capture arrays download
-        # dense: the equal-mass routing map gives rows equal counts, so
-        # rows over sparse key ranges have in-row gaps far past the gap
-        # field; a few wide rows, not a reason to give up the packing
-        # of the rest
-        dense_rows = np.flatnonzero(n_exc_row > EC)
-        if len(dense_rows) > max(4, B // 4):
-            return None
-        head_p = [p.astype(np.uint64) for p in headp_f]
-        head_c = headc_f
-        exc_col = exccol_f.reshape(B, EC)
-        exc_p = [p.reshape(B, EC).astype(np.uint64) for p in excp_f]
-        exc_cnt = exccnt_f.reshape(B, EC)
-        # wire accounting accumulates locally and commits only on the
-        # successful return: the exception loop below can still bow out
-        # to the dense download, which does its own accounting
-        d2h_bytes = blob.nbytes
-
-        cbits_row = (32 - gbits_f.astype(np.int32)).astype(np.uint32)
-        # the host decode (its span leaves out the dense rows' fetches)
-        with trace.span("count.host_decode"):
-            lo0 = head_p[0]
-            if P == 2:
-                lo0 = lo0 | (head_p[1] << np.uint64(32))
-            gaps = (packed >> cbits_row[:, None]).astype(np.uint64)
-            cnts = (packed & ((np.uint32(1) << cbits_row[:, None])
-                              - np.uint32(1))).astype(np.uint32)
-            is_exc = packed == 0xFFFFFFFF
-            gaps[is_exc] = 0
-            gaps[:, 0] = 0
-            keys = gaps
-            keys[:, 0] = lo0
-            np.cumsum(keys, axis=1, out=keys)
-            # exceptions: absolute key + count; the correction propagates
-            # to the rest of the row (later gaps are relative to the true
-            # predecessor); columns ascend, so applying in array order
-            # keeps each correction consistent downstream
-            for r in np.flatnonzero((n_exc_row > 0) & (n_exc_row <= EC)):
-                for j in range(int(n_exc_row[r])):
-                    c = int(exc_col[r, j])
-                    if c >= lmax:
-                        return None  # entry past the downloaded prefix
-                    t = exc_p[0][r, j]
-                    if P == 2:
-                        t = t | (exc_p[1][r, j] << np.uint64(32))
-                    keys[r, c:] += t - keys[r, c]
-                    cnts[r, c] = exc_cnt[r, j]
-            m = packed != 0
-            m[:, 0] = head_c > 0
-            cnts[:, 0] = head_c
-            if len(dense_rows):
-                dr = torch.from_numpy(dense_rows).to(self.device)
-                dk = self._fetch(self._dispatch(
-                    torch.index_select, key[:, :lmax], 0, dr))
-                dc = self._fetch(self._dispatch(
-                    torch.index_select, counts[:, :lmax], 0, dr)
-                    .to(torch.int32)).view(np.uint32)
-                d2h_bytes += dk.nbytes + dc.nbytes
-                keys[dense_rows] = dk.view(np.uint64) ^ np.uint64(1 << 63)
-                cnts[dense_rows] = dc
-                m[dense_rows] = dc > 0
-            lo = keys[m]
-            cts = cnts[m]
-            hi = np.zeros(len(lo), np.uint64)
-            self.wire_d2h_bytes += d2h_bytes
-            return (hi, lo, cts.astype(np.uint64))
 
     def finalize(self):
         """-> sorted unique (hi, lo, counts-u32)."""
@@ -773,12 +648,10 @@ def device_bytes_per_base(k: int) -> int:
     int64 indices and its double buffer (8W + 8 + 8W + 8), the previous
     chunk's sorted keys awaiting the host in the 1-deep pipeline (8W),
     the valid and start masks (2); two words sort in two stable passes
-    and hold three more index-sized temporaries (24); with
-    MERYL_TPU_COMPACT=device the compaction holds six more (48).  On an
-    H100 a 2^22 chunk at k=21 peaks at 42 B a base, and at 102 with the
-    device compaction (PERF.md)."""
+    and hold three more index-sized temporaries (24).  On an H100 a
+    2^22 chunk at k=21 peaks at 42 B a base (PERF.md)."""
     w = mw.num_words(k)
-    return 40 * w + 18 + 24 * (w - 1) + (48 if _compact_device() else 0)
+    return 40 * w + 18 + 24 * (w - 1)
 
 
 def device_memory_gb(device) -> float:

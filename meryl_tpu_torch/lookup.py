@@ -4,26 +4,24 @@
 The table is the DB's sorted keys as the port's flipped int64 words
 (ops/multiword.py: one word for k <= 32, (N, 2) above), its values as
 int32 bit patterns of the uint32 counts, and a prefix-offset table.
-Queries come in batches and take one of the reference's regimes:
+Queries come in batches and take one of two regimes, chosen by where
+the table lives:
 
-  * binary search (`values_batch`): for k <= 32 one word is the whole
-    key and `torch.searchsorted` over the sorted words is the exact
-    lower bound; for k > 32 the reference's prefix-bucketed
-    lexicographic search runs in torch;
-  * sort-merge join (`values_join`): one stable sort of [DB, queries];
-  * routed join (`_values_bulk_join`): queries routed to bucket groups
-    of the DB, one sort a group row, each query read from its
-    predecessor;
-  * grid join (`_values_bulk_bacj`, ops/bacjoin.py): the DB padded into
-    a bucket grid, host-routed query slabs, a dense compare; segmented
-    and streamed through the device for tables past its budget;
-  * host search (`values_host`): numpy searchsorted on the host copy.
+  * binary search (`values_batch`), for a table on the device: for
+    k <= 32 one word is the whole key and `torch.searchsorted` over the
+    sorted words is the exact lower bound; for k > 32 the reference's
+    prefix-bucketed lexicographic search runs in torch;
+  * grid join (`_values_bulk_bacj`, ops/bacjoin.py), for a bulk batch
+    of at least JOIN_MIN_Q valid queries against a table past the
+    device budget (MERYL_TPU_LOOKUP_DEVICE_GB): the DB padded into a
+    bucket grid, host-routed query slabs, a dense compare; one grid on
+    the device, or segments streamed through it one at a time.
 
-`values_bulk` picks among them with the class thresholds (JOIN_MIN_Q,
-JOIN_MIN_N, BACJ_MIN_N), which the port sets from its own measurements
-on the card (PERF.md).  Every regime is exact; the hatches that fall
-back to another regime (cell overflow, a lost capture window, a slab
-the router rejects) are the reference's and are counted in STATS.
+Smaller batches and point probes against such a table take the host
+search (`values_host`: numpy searchsorted on the host copy).  Every
+regime is exact; the grid join's hatches (cell overflow, a lost
+capture window, a slab the router rejects) are the reference's, end in
+the host search and are counted in STATS.
 
 value(kmer) == 0 means absent, as in the reference.
 """
@@ -50,11 +48,9 @@ STATS: dict = {}
 
 def reset_stats() -> None:
     STATS.clear()
-    STATS.update(bsearch_calls=0, bsearch_queries=0, join_slabs=0,
-                 join_overflow=0, bacj_slabs=0, bacj_segments=0,
-                 bacj_cell_overflow=0, bacj_lost_rows=0,
-                 bacj_rejected_slabs=0, host_fallback=0,
-                 sortjoin_slabs=0, host_queries=0)
+    STATS.update(bsearch_calls=0, bsearch_queries=0, bacj_slabs=0,
+                 bacj_segments=0, bacj_cell_overflow=0, bacj_lost_rows=0,
+                 bacj_rejected_slabs=0, host_fallback=0, host_queries=0)
 
 
 reset_stats()
@@ -135,154 +131,6 @@ def _query_kernel(db_key, db_values, offsets, q_key, valid, k: int, b: int,
     return torch.where(found & valid, v, 0)
 
 
-def _join_kernel(db_key, db_values, q_key, q_valid, k: int):
-    """Sort-merge join: one stable sort of [db, queries] (each DB entry
-    sorts before its equal queries), then each run's first entry's
-    value broadcast to the run.  -> (values in sorted order, each
-    entry's query index; Q for DB entries)."""
-    from .ops import segscan
-
-    N, Q = db_key.shape[0], q_key.shape[0]
-    dev = q_key.device
-    sent = mw.sentinel(k, dev)
-    keys = torch.cat([db_key, mw.where(q_valid, q_key, sent, k)])
-    is_db = torch.cat([torch.ones(N, dtype=torch.bool, device=dev),
-                       torch.zeros(Q, dtype=torch.bool, device=dev)])
-    vals = torch.cat([db_values.to(torch.int64) & M32,
-                      torch.zeros(Q, dtype=torch.int64, device=dev)])
-    qidx = torch.cat([torch.full((N,), Q, dtype=torch.int64, device=dev),
-                      torch.arange(Q, dtype=torch.int64, device=dev)])
-    skey, (s_isdb, s_vals, s_qidx) = mw.sort(keys, k, (is_db, vals, qidx),
-                                             stable=True)
-    start = mw.run_starts(skey, k)
-    # each element's run start: the running max of the start positions
-    pos = torch.arange(N + Q, dtype=torch.int64, device=dev)
-    first = segscan.seg_scan(torch.maximum, torch.where(start, pos, 0), start)
-    out = torch.where(~s_isdb & s_isdb[first], s_vals[first], 0)
-    return out, s_qidx
-
-
-def _rows_take(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    """Gather along the position axis of a (R, L) or (R, L, 2) tensor."""
-    if x.dim() == order.dim():
-        return torch.gather(x, 1, order)
-    return torch.gather(x, 1, order.unsqueeze(-1).expand(*order.shape, 2))
-
-
-def _route_join_kernel(gkey, gvalues, q_key, n_valid: int, pad_key, cfg,
-                       exists_only: bool = False):
-    """Routed join of one (R0, L0) query slab against the bucket-grouped
-    DB (counterpart of meryl_tpu/lookup.py _route_join_kernel_impl).
-
-    Routing: one sort of each row by bucket prefix, a cummax rank, a
-    per-(row, bucket) count by searchsorted, and one stable compaction
-    sort of [queries ++ pads] gives exactly c slots per bucket; the
-    cells transpose so each group's queries sit beside that group's DB
-    entries.  Join: one sort a group row by (key, kind << 22 | qidx);
-    a query's value is its predecessor's when that is its DB entry, and
-    further equal queries are flagged as duplicates (the caller
-    forward-fills them).  Results move to each row's front.
-    -> (values, qidx | dup << 31, n_ovf, tail qidx), or
-       (packed, n_ovf, tail qidx) with exists_only."""
-    k, P, b, B, G, SUB, LDB, R0, L0, c = cfg
-    D = B * c
-    dev = q_key.device
-    i64 = torch.int64
-
-    # query ids in slab order, SENTQ for the padding past n_valid
-    iot0 = torch.arange(R0 * L0, dtype=i64, device=dev).reshape(R0, L0)
-    q_qidx = torch.where(iot0 < n_valid, iot0, SENTQ)
-
-    # sort 1: queries by bucket prefix
-    pref = _top_bits_t(q_key, k, b)
-    pref1, order = torch.sort(pref, dim=1, stable=True)
-    key1 = _rows_take(q_key, order)
-    qidx1 = torch.gather(q_qidx, 1, order)
-
-    # rank within the bucket: position minus the segment start's
-    seg_start = torch.cat([torch.ones(R0, 1, dtype=torch.bool, device=dev),
-                           pref1[:, 1:] != pref1[:, :-1]], dim=1)
-    iot = torch.arange(L0, dtype=i64, device=dev).expand(R0, L0)
-    seg_base = torch.cummax(torch.where(seg_start, iot, -1), dim=1).values
-    kept_q = (iot - seg_base) < c
-
-    # per-(row, bucket) query counts; pads fill slot j of a bucket with
-    # n kept queries iff j >= min(n, c)
-    tgt = torch.arange(B + 1, dtype=i64, device=dev).expand(R0, B + 1)
-    lo_b = torch.searchsorted(pref1.contiguous(), tgt.contiguous())
-    n_bucket = lo_b[:, 1:] - lo_b[:, :-1]
-    pad_rank = torch.arange(c, dtype=i64, device=dev).repeat(B)
-    kept_p = pad_rank[None, :] >= torch.minimum(
-        n_bucket.repeat_interleave(c, dim=1), torch.tensor(c, device=dev))
-
-    # sort 2: one compaction sort of [reals ++ pads] keyed by bucket (or
-    # SENTQ): the leading D slots are the bucket-major cells
-    key2 = torch.cat([torch.where(kept_q, pref1, SENTQ),
-                      torch.where(kept_p, pad_key.expand(R0, D), SENTQ)],
-                     dim=1)
-    sent = mw.sentinel(k, dev)
-    pads = sent.expand(R0, D, 2) if q_key.dim() == 3 else sent.expand(R0, D)
-    keys2 = torch.cat([key1, pads], dim=1)
-    qidx2 = torch.cat([qidx1, torch.full((R0, D), SENTQ, dtype=i64,
-                                         device=dev)], dim=1)
-    _, order = torch.sort(key2, dim=1, stable=True)
-    keys2 = _rows_take(keys2, order)
-    qidx2 = torch.gather(qidx2, 1, order)
-    cells_key, cells_qidx = keys2[:, :D], qidx2[:, :D]
-    tail_qidx = qidx2[:, D:]
-    n_ovf = int((tail_qidx != SENTQ).sum())
-
-    # align cells with DB groups: (R0, D) -> (G, SUB*c*R0)
-    CQ = SUB * c * R0
-    cells_key = cells_key.transpose(0, 1).reshape(
-        (G, CQ) + tuple(cells_key.shape[2:]))
-    cells_qidx = cells_qidx.transpose(0, 1).reshape(G, CQ)
-
-    # per-group join: kind 0 = DB entry, 1 = query, 3 = padding; kind
-    # and qidx pack into one sort word (kind << 22 | qidx, qidx < 2^21)
-    QMASK = (1 << 22) - 1
-    db_pk = torch.where(gvalues != 0, 0, 3 << 22) | QMASK
-    q_pk = torch.where(cells_qidx != SENTQ, (1 << 22) | cells_qidx,
-                       (3 << 22) | QMASK)
-    packed = torch.cat([db_pk.to(i64).expand(G, LDB), q_pk], dim=1)
-    jkey = torch.cat([gkey, cells_key], dim=1)
-    jval = torch.cat([gvalues.to(i64) & M32,
-                      torch.zeros(G, CQ, dtype=i64, device=dev)], dim=1)
-    packed, order = torch.sort(packed, dim=1, stable=True)
-    jkey = _rows_take(jkey, order)
-    jval = torch.gather(jval, 1, order)
-    skey, (packed3, val3) = mw.sort(jkey, k, (packed, jval), stable=True)
-    kind3 = packed3 >> 22
-
-    # 1-step lookback: the DB entry sorts immediately before its equal
-    # queries; further equal queries chain as duplicates
-    def prev(x, fill):
-        return torch.cat([torch.full((G, 1), fill, dtype=x.dtype,
-                                     device=dev), x[:, :-1]], dim=1)
-
-    same = skey[:, 1:] == skey[:, :-1]
-    if same.dim() == 3:
-        same = same.all(dim=-1)
-    eq_prev = torch.cat([torch.zeros(G, 1, dtype=torch.bool, device=dev),
-                         same], dim=1)
-    pk = prev(kind3, 3)
-    is_q = kind3 == 1
-    out_val = torch.where(is_q & (pk == 0) & eq_prev, prev(val3, 0), 0)
-    dup = (is_q & (pk == 1) & eq_prev).to(i64)
-
-    # compact each row's query results to its front
-    flag = (~is_q).to(torch.int8)
-    _, order = torch.sort(flag, dim=1, stable=True)
-    if exists_only:
-        pw = torch.where(is_q, (packed3 & ((1 << 21) - 1))
-                         | ((out_val > 0).to(i64) << 22) | (dup << 31),
-                         SENTQ)
-        return torch.gather(pw, 1, order)[:, :CQ], n_ovf, tail_qidx
-    out_qidx = torch.where(is_q, (packed3 & QMASK) | (dup << 31), SENTQ)
-    return (torch.gather(out_val, 1, order)[:, :CQ],
-            torch.gather(out_qidx, 1, order)[:, :CQ], n_ovf, tail_qidx)
-
-
 class ExactLookup:
     """Exact lookup table for one database (merylExactLookup:
     load(db, minV, maxV), value(), exists(), nKmers()).
@@ -291,25 +139,18 @@ class ExactLookup:
     validity masks; `device` is where the table lives ("cuda" unless
     the caller asks for the CPU).  A table past MERYL_TPU_LOOKUP_DEVICE_GB
     (default half the card's memory) stays on the host: bulk queries
-    then run the segmented grid join, point probes the host search."""
+    then run the grid join, point probes the host search."""
 
     BULK_SLAB = 1 << 22      # queries per binary-search dispatch
 
-    # Regime thresholds, from the port's measurements on an H100 (PERF.md
-    # §6, chip_smoke.py phase 14: 2^23 queries, half hits): the binary
-    # search answers 1070-1687 Mq/s at 10.56 M entries and 1222-1866 at
-    # 2^16, the routed join 78-162, values_join 107-251, the grid join
-    # with its host router at most 4.  So a table on the device always
-    # takes the binary search (JOIN_MIN_N, BACJ_MIN_N out of reach), and
-    # the segmented grid join serves a table past the device budget from
-    # JOIN_MIN_Q valid queries.  Every regime stays exact and can be
-    # forced through these attributes.
-    JOIN_SLAB = 1 << 21      # valid queries per routed-join dispatch
-    JOIN_R0 = 1 << 4         # routing rows per slab
-    JOIN_MIN_Q = 1 << 17     # below: binary search
-    JOIN_MIN_N = 1 << 62     # routed join from this table size
-    _LDB_TARGET = 1 << 13    # DB entries per join row (pre padding)
-    BACJ_MIN_N = 1 << 62     # grid join for a device-resident table
+    # Regimes, from the port's measurements on an H100 (PERF.md §6: 2^23
+    # queries, half hits): on the device the binary search answers
+    # 1070-1687 Mq/s at 10.56 M entries, where every join measured at
+    # most 251 Mq/s.  So a table on the device always takes the binary
+    # search.  A table past the device budget takes the grid join from
+    # JOIN_MIN_Q valid queries (one grid, or segments streamed through
+    # the device) and the host search below that.
+    JOIN_MIN_Q = 1 << 17     # below: binary search or host search
     BACJ_SLAB = 1 << 23      # queries per grid-join dispatch
 
     def __init__(self, db: MerylDB, min_value: int = 0,
@@ -346,7 +187,6 @@ class ExactLookup:
         # host copies for the host search and the lazily built layouts
         self._np_hi, self._np_lo = hi, lo
         self._np_counts = vals
-        self._grouped = None
         self._bacj = None
 
     def n_kmers(self) -> int:
@@ -455,131 +295,24 @@ class ExactLookup:
 
         key: (Q,) or (Q, 2) words as a tensor (kept where it is when the
         regime runs on the device) or a numpy array; valid: (Q,) bool.
-        exists_only=True returns 0/1 instead of counts.  The grid join
-        runs for a table past the device budget (or from BACJ_MIN_N
-        entries), the routed join from JOIN_MIN_N, each from JOIN_MIN_Q
-        valid queries; the binary search otherwise."""
-        if isinstance(valid, torch.Tensor):
-            n_valid = int(valid.sum())
-        else:
-            n_valid = int(np.count_nonzero(valid))
-        if (self._n >= self.BACJ_MIN_N or not self._device_resident) \
-                and n_valid >= self.JOIN_MIN_Q:
-            if self._bacj is None:
-                self._bacj = self._build_bacj() or "degenerate"
-            if self._bacj != "degenerate":
-                return self._values_bulk_bacj(key, valid, exists_only)
-        if (self._n >= self.JOIN_MIN_N and n_valid >= self.JOIN_MIN_Q
-                and self._device_resident):
-            if self._grouped is None:
-                self._grouped = self._build_grouped() or "degenerate"
-            if self._grouped != "degenerate":
-                return self._values_bulk_join(key, valid, exists_only)
+        exists_only=True returns 0/1 instead of counts.  A table past the
+        device budget takes the grid join from JOIN_MIN_Q valid queries;
+        everything else the binary search (the host search for such a
+        table)."""
+        if not self._device_resident:
+            if isinstance(valid, torch.Tensor):
+                n_valid = int(valid.sum())
+            else:
+                n_valid = int(np.count_nonzero(valid))
+            if n_valid >= self.JOIN_MIN_Q:
+                if self._bacj is None:
+                    self._bacj = self._build_bacj() or "degenerate"
+                if self._bacj != "degenerate":
+                    return self._values_bulk_bacj(key, valid, exists_only)
         v = self._bsearch_t(self._key_t(key), self._valid_t(valid))
         if exists_only:
             return (v > 0).cpu().numpy().astype(np.uint32)
         return bj.download_u32(v)
-
-    def _build_grouped(self):
-        """One-time build of the bucket-grouped DB layout: (G, LDB) key
-        and value rows, each row SUB consecutive top-b-bit buckets,
-        padded with the sentinel key and value 0.  None when the DB's
-        prefix skew would blow the query cell capacity."""
-        N = self._n
-        G = 1 << max(0, (max(1, (N + self._LDB_TARGET - 1)
-                            // self._LDB_TARGET) - 1).bit_length())
-        b = max(G, 512).bit_length() - 1
-        b = min(b, 2 * self.k, 26)
-        B = 1 << b
-        SUB = max(1, B // G)
-        G = B // SUB
-        top = bj._top_bits_np(self._np_hi, self._np_lo, self.k, b)
-        counts = np.bincount(top, minlength=B)
-        gcounts = counts.reshape(G, SUB).sum(axis=1)
-        # eighth-pow2 quantization of the longest group row
-        mx = int(max(1, gcounts.max()))
-        q = max(64, 1 << max(0, mx.bit_length() - 4))
-        LDB = max(256, ((mx + q - 1) // q) * q)
-        assert self.JOIN_SLAB <= 1 << 21  # qidx packs into 22 bits
-        # query cell capacity for the hotter of a uniform miss stream and
-        # a hit stream following the DB's own bucket skew, 2.5 sigma
-        L0 = self.JOIN_SLAB // self.JOIN_R0
-        mean_uni = L0 / B
-        mean_hot = L0 * (counts.max() / max(N, 1))
-        mean = max(mean_uni, mean_hot, 1.0)
-        c = int(np.ceil(mean + 2.5 * np.sqrt(mean) + 8))
-        if c * B > 4 * L0:  # degenerate skew: give up on the join
-            return None
-        starts = np.zeros(G + 1, np.int64)
-        np.cumsum(gcounts, out=starts[1:])
-        grp = top // SUB
-        col = np.arange(N, dtype=np.int64) - starts[grp]
-        key = mw.from_hilo(self._np_hi, self._np_lo, self.k)
-        sent = np.array(mw.sentinel_words(self.k), np.int64)
-        gkey = np.empty((G, LDB) + key.shape[1:], np.int64)
-        gkey[:] = sent if key.ndim == 2 else sent[0]
-        gkey[grp, col] = key
-        gvalues = np.zeros((G, LDB), np.uint32)
-        gvalues[grp, col] = self._np_counts[:N]
-        dev = self.device
-        return {
-            "cfg": (self.k, self.P, b, B, G, SUB, LDB, self.JOIN_R0, L0, c),
-            "gkey": torch.from_numpy(gkey).to(dev),
-            "gvalues": bj.to_device_u32(gvalues, dev),
-            "pad_key": torch.arange(B, dtype=torch.int64,
-                                    device=dev).repeat_interleave(c),
-        }
-
-    def _values_bulk_join(self, key, valid, exists_only=False) -> np.ndarray:
-        """Routed join over slabs of R0 x L0 valid queries, on the
-        device; only the values cross to the host."""
-        g = self._grouped
-        cfg = g["cfg"]
-        R0, L0 = cfg[7], cfg[8]
-        key, valid = self._key_t(key), self._valid_t(valid)
-        dev = key.device
-        out = torch.zeros(valid.shape[0], dtype=torch.int64, device=dev)
-        vidx = torch.nonzero(valid).squeeze(1)
-        slab = R0 * L0
-        sent = mw.sentinel(self.k, dev)
-        for s in range(0, vidx.shape[0], slab):
-            take = vidx[s:s + slab]
-            n = take.shape[0]
-            qk = sent.expand((slab,) + tuple(key.shape[1:])).clone()
-            qk[:n] = key[take]
-            qk = qk.reshape((R0, L0) + tuple(key.shape[1:]))
-            STATS["join_slabs"] += 1
-            if exists_only:
-                pk, n_ovf, tail = _route_join_kernel(
-                    g["gkey"], g["gvalues"], qk, n, g["pad_key"], cfg, True)
-                pk = pk.reshape(-1)
-                pk = pk[pk != SENTQ]
-                v = (pk >> 22) & 1
-                dup = (pk >> 31) != 0
-                qn = pk & 0x1FFFFF
-            else:
-                val2, qidx2, n_ovf, tail = _route_join_kernel(
-                    g["gkey"], g["gvalues"], qk, n, g["pad_key"], cfg)
-                val2, qidx2 = val2.reshape(-1), qidx2.reshape(-1)
-                mask = qidx2 != SENTQ
-                v, qraw = val2[mask], qidx2[mask]
-                dup = (qraw >> 31) != 0
-                qn = qraw & 0x7FFFFFFF
-            # duplicates copy their run representative's value: results
-            # are in sorted-key order, so chains are contiguous
-            src = torch.where(dup, 0, torch.arange(v.shape[0], device=dev))
-            v = v[torch.cummax(src, 0).values]
-            out[take[qn]] = v
-            if n_ovf:
-                # cell-capacity overflow: those queries exactly through
-                # the binary search
-                STATS["join_overflow"] += n_ovf
-                tq = tail.reshape(-1)
-                opos = take[tq[tq != SENTQ]]
-                ov = self._bsearch_t(key[opos], torch.ones(
-                    opos.shape[0], dtype=torch.bool, device=dev))
-                out[opos] = (ov > 0).to(torch.int64) if exists_only else ov
-        return bj.download_u32(out)
 
     def _build_bacj(self):
         """One-time host build of the bucket-grid layout for the grid
@@ -730,23 +463,6 @@ class ExactLookup:
             del dbd_s, dbv_s
         resolve_fallbacks()
         return out
-
-    def values_join(self, key, valid) -> np.ndarray:
-        """Sort-merge-join variant of values_bulk: one stable sort of DB
-        and queries a slab, no binary search."""
-        key, valid = self._key_t(key), self._valid_t(valid)
-        Q = valid.shape[0]
-        out = torch.zeros(Q, dtype=torch.int64, device=key.device)
-        slab = max(self._n, 1 << 22)
-        for s in range(0, Q, slab):
-            e = min(Q, s + slab)
-            STATS["sortjoin_slabs"] += 1
-            vals, qidx = _join_kernel(self._key, self._values, key[s:e],
-                                      valid[s:e], self.k)
-            m = qidx < (e - s)
-            out[s + qidx[m]] = vals[m]
-        out[~valid] = 0
-        return bj.download_u32(out)
 
     # ---- convenience host-side probes (small batches)
 

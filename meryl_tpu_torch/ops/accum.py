@@ -230,108 +230,3 @@ def merge_cells(acc_key, acc_counts, staged, k: int, La_out: int,
     new_counts.scatter_(1, dest, torch.where(keep, total, 0))
     return new_key[:, :La_out], new_counts[:, :La_out], n_runs
 
-
-# exceptions a row may hold in the packed download's side arrays; a row
-# past it is downloaded dense by DeviceAccCounter
-EXC_ROW_CAP = 64
-
-_M32 = 0xFFFFFFFF
-
-
-def _bit_length(x: torch.Tensor) -> torch.Tensor:
-    """Bits needed for each non-negative value below 2^32 (0 -> 0)."""
-    pow2 = torch.ones(32, dtype=torch.int64, device=x.device) << \
-        torch.arange(32, device=x.device)
-    return (x.unsqueeze(-1) >= pow2).sum(dim=-1)
-
-
-def pack_for_download(acc_key, acc_counts, k: int, cbits_min):
-    """Gap-pack the accumulator for download (2k <= 64 only).
-
-    Keys within an accumulator row are sorted, so each entry is its
-    predecessor's key plus a gap: (gap << cbits | count) goes into ONE
-    32-bit word in place of a key and a count.  The gap/count split is
-    per row: a row sizes its gap field from its own largest in-row gap
-    (gbits_row), floored by cbits_min bits for the count field.  Entries
-    that do not fit (count past the field, gap past the field or past
-    32 bits, or a word equal to the all-ones exception mark) are
-    exceptions: their full key and count are compacted per row into
-    (B, EXC_ROW_CAP) side arrays and re-applied by position on the
-    host.  The caller downloads column 0 of each row dense (the cumsum
-    base), and rows whose exceptions pass EXC_ROW_CAP dense.
-
-    All tensors are int64 holding 32-bit values (the reference's are
-    uint32), and the exception keys are the reference's P 32-bit
-    planes, least significant first:
-    -> (packed (B, La)  0 = empty, 0xFFFFFFFF = exception, else word,
-        gbits_row (B,), exc_col (B, EXC) column of each exception
-        (0xFFFFFFFF padded), exc_planes P x (B, EXC), exc_cnt (B, EXC),
-        n_exc_row (B,))"""
-    if mw.num_words(k) != 1:
-        raise ValueError(f"packed download needs 2k <= 64, got k={k}")
-    B, La = acc_counts.shape
-    dev = acc_counts.device
-    P = 1 if k <= 16 else 2
-    col = torch.arange(La, device=dev).expand(B, La)
-    valid = acc_counts > 0
-
-    # the unsigned 64-bit gap to the predecessor; flipped words differ
-    # as their unsigned images do, and a gap of 2^63 or more shows as
-    # negative
-    d = acc_key - torch.cat([acc_key[:, :1], acc_key[:, :-1]], dim=1)
-    hi_ok = (d >> 32) == 0 if P == 2 else torch.ones_like(valid)
-    d0 = d & _M32
-    in_row = valid & (col > 0) & hi_ok
-    gmax = torch.where(in_row, d0, 0).max(dim=1).values
-    gbits_row = torch.clamp(_bit_length(torch.clamp(gmax, min=1)), min=1)
-    gbits_row = torch.clamp(gbits_row, max=32 - cbits_min)
-    gb = gbits_row[:, None]
-    cb = 32 - gb
-    one = torch.ones_like(gb)
-    word = ((d0 << cb) & _M32) | acc_counts
-    fit = in_row & (d0 < (one << gb)) & (acc_counts < (one << cb)) \
-        & (word != _M32)
-    exc = valid & (col > 0) & ~fit
-    packed = torch.where(fit, word, torch.where(exc, _M32, 0))
-
-    # per-row exception compaction: stable sort by column, exceptions
-    # first, so they stay in key order at the row front
-    skey, order = torch.sort(torch.where(exc, col, _M32), dim=1, stable=True)
-    order = order[:, :EXC_ROW_CAP]
-    u = torch.gather(acc_key, 1, order) ^ mw.FLIP
-    exc_planes = (u & _M32,) if P == 1 else (u & _M32, (u >> 32) & _M32)
-    return (packed, gbits_row, skey[:, :EXC_ROW_CAP], exc_planes,
-            torch.gather(acc_counts, 1, order), exc.sum(dim=1))
-
-
-def pack_for_download_fused(acc_key, acc_counts, k: int, bases_seen,
-                            lmax: int):
-    """pack_for_download with every output flattened into ONE int32
-    blob (32-bit patterns; the host views it as uint32), so the host
-    pays a single blocking fetch.  The count field's floor (coverage
-    mean + 5 sigma) is derived on the device from bases_seen / uniques,
-    so the host fetches no unique count first.  Layout:
-
-      [ packed[:, :lmax] | gbits_row | n_exc_row | counts[:, 0]
-        | planes[p][:, 0] x P | exc_col | exc_cnt | exc_planes x P ]
-
-    The host splits by the statically known shapes (B, lmax,
-    EXC_ROW_CAP)."""
-    u = torch.clamp((acc_counts > 0).sum(), min=1)
-    mean_c = torch.clamp(torch.as_tensor(float(bases_seen),
-                                         dtype=torch.float32,
-                                         device=acc_counts.device)
-                         / u.to(torch.float32), min=1.0)
-    need_c = torch.ceil(mean_c + 5.0 * torch.sqrt(mean_c) + 8.0) \
-        .to(torch.int64)
-    cbits_min = torch.clamp((_bit_length(need_c) + 1) // 2 * 2, 6, 24)
-    packed, gbits_row, exc_col, exc_planes, exc_cnt, n_exc_row = \
-        pack_for_download(acc_key, acc_counts, k, cbits_min)
-    head = acc_key[:, 0] ^ mw.FLIP
-    head_planes = [head & _M32] + ([(head >> 32) & _M32]
-                                   if len(exc_planes) == 2 else [])
-    parts = ([packed[:, :lmax].reshape(-1), gbits_row, n_exc_row,
-              acc_counts[:, 0]] + head_planes
-             + [exc_col.reshape(-1), exc_cnt.reshape(-1)]
-             + [p.reshape(-1) for p in exc_planes])
-    return torch.cat([p.to(torch.int32) for p in parts])

@@ -1,9 +1,9 @@
 """Sort and run-length count of extracted k-mers (counterpart of
 meryl_tpu/ops/count.py) for the host sort path: the exactness hatches
-of the device accumulator recount a chunk here.  The compacted variants
-(sort_count_compacted, merge_counted, merge_many) leave the unique
-entries at the front of the array on the device, and value_histogram
-bins counts.
+of the device accumulator recount a chunk here (sort_starts, then
+host_rle_finish).  The compacted merges (merge_counted, merge_many)
+leave the unique entries at the front of the array on the device, and
+value_histogram bins counts.
 
 Invalid windows are forced to the sentinel key, which sorts last.  The
 real all-ones k-mer aliases the sentinel when 2k % 32 == 0; the
@@ -107,32 +107,6 @@ def _compact_by_flag(flag: torch.Tensor, payloads, k: int | None = None):
     order = torch.sort((~flag).to(torch.int8), stable=True).indices
     return [mw.take(p, order, k) if p.dim() > 1 else p[order]
             for p in payloads]
-
-
-def sort_count_compacted(key: torch.Tensor, valid: torch.Tensor, k: int):
-    """sort_count with the unique entries compacted to the front on the
-    device (MERYL_TPU_COMPACT=device downloads only that prefix).
-
-    -> (unique keys, counts, n_unique); entries past n_unique hold the
-    sentinel key with count 0."""
-    L = valid.shape[0]
-    dev = key.device
-    sent = mw.sentinel(k, dev)
-    n_invalid = (~valid).sum()
-    skey, _ = mw.sort(mw.where(valid, key, sent, k), k)
-    start = mw.run_starts(skey, k)
-    end = torch.cat([start[1:], torch.ones(1, dtype=torch.bool,
-                                           device=dev)])
-    idx = torch.arange(L, device=dev)
-    spos, ckey = _compact_by_flag(start, (idx, skey), k)
-    (epos,) = _compact_by_flag(end, (idx,))
-    counts = epos - spos + 1
-    in_range = idx < start.sum()
-    is_sent = mw.is_sentinel(ckey, k) & in_range
-    counts = counts - torch.where(is_sent, n_invalid, 0)
-    keep = in_range & (counts > 0)
-    return (mw.where(keep, ckey, sent, k), torch.where(keep, counts, 0),
-            keep.sum())
 
 
 def merge_many(keys_list, counts_list, k: int):

@@ -7,6 +7,9 @@ overflow counts; values_bulk forced into the regime (one grid or
 segmented, with each of its three exact hatches) equals the reference
 bit for bit."""
 
+import os
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -142,14 +145,18 @@ def test_kernel_matches_reference(k, b, b1, c):
 # ---- the regime through ExactLookup.values_bulk, both packages
 
 def _pair(k, hi, lo, c, slab):
-    out = []
-    for mod, kw in ((lk, dict(device="cpu")), (ref_lk, {})):
-        t = mod.ExactLookup(_FakeDB(k, hi, lo, c), **kw)
-        t.BACJ_MIN_N = 1 << 10
+    """The port's table past its device budget (so its bulk batches take
+    the grid join) and the reference's forced into the grid join by its
+    own table-size threshold."""
+    with mock.patch.dict(os.environ, MERYL_TPU_LOOKUP_DEVICE_GB="1e-6"):
+        port = lk.ExactLookup(_FakeDB(k, hi, lo, c), device="cpu")
+    assert not port._device_resident
+    ref = ref_lk.ExactLookup(_FakeDB(k, hi, lo, c))
+    ref.BACJ_MIN_N = 1 << 10
+    for t in (port, ref):
         t.BACJ_SLAB = slab
         t.JOIN_MIN_Q = 1 << 10
-        out.append(t)
-    return out
+    return port, ref
 
 
 def _bulk(tabs, k, qhi, qlo, valid=None, exists_only=False):
@@ -240,17 +247,3 @@ def test_segmented_grid_matches_reference(monkeypatch, native):
     np.testing.assert_array_equal(
         got, want_values(hi, lo, c, qhi, qlo, np.ones(len(qlo), bool)))
     _bulk(tabs, k, qhi, qlo, exists_only=True)
-
-
-def test_below_grid_threshold_takes_the_routed_join():
-    k = 21
-    rng = np.random.default_rng(19)
-    hi, lo, c = table_arrays(rng, 1 << 14, k)
-    tabs = _pair(k, hi, lo, c, 1 << 13)
-    for t in tabs:
-        t.BACJ_MIN_N = 1 << 30
-        t.JOIN_MIN_N = 1 << 8
-        t.JOIN_SLAB, t.JOIN_R0, t._LDB_TARGET = 1 << 14, 4, 1 << 11
-    qhi, qlo = _keys(rng, 1 << 12, k)
-    _bulk(tabs, k, qhi, qlo)
-    assert tabs[0]._bacj is None and isinstance(tabs[0]._grouped, dict)

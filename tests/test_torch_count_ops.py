@@ -1,7 +1,9 @@
-"""meryl_tpu_torch's compacted count functions, the count-suffix filter
-and the MERYL_TPU_COMPACT=device chunk path against meryl_tpu: the same
-seeded numpy inputs go to both, and every output is an integer array
-that must be equal bit for bit (tolerance zero)."""
+"""meryl_tpu_torch's count functions against meryl_tpu's: the host sort
+path (sort_starts, then host_rle_finish, for one chunk and for a whole
+count) against the reference's device-compacted count, the compacted
+merges, the histogram and the count-suffix filter.  The same seeded
+numpy inputs go to both, and every output is an integer array that must
+be equal bit for bit (tolerance zero)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -52,33 +54,51 @@ def _port_counts(c):
     return torch.from_numpy(np.asarray(c).astype(np.int64))
 
 
+def _host_sort(key, valid, k):
+    """One chunk's keys through the host sort path: the device sort and
+    run starts, then the host's run lengths -> (hi, lo, counts)."""
+    (run,) = counter._finish_chunk(cnt.sort_starts(key, valid, k), None, k)
+    return run
+
+
+def _assert_ref_compacted(got, up, c, n, k):
+    """(hi, lo, counts) equal to the first n entries of the reference's
+    sort_count_compacted output."""
+    n = int(n)
+    hi, lo = mw.to_hilo(_port_key([np.asarray(p)[:n] for p in up], k)
+                        .numpy(), k)
+    np.testing.assert_array_equal(got[0], hi)
+    np.testing.assert_array_equal(got[1], lo)
+    np.testing.assert_array_equal(got[2], np.asarray(c)[:n])
+    assert not np.asarray(c)[n:].any()
+
+
 @pytest.mark.parametrize("k", KS)
-def test_sort_count_compacted_matches_reference(k):
-    planes, valid, key, tvalid = _both_extract(_codes(k), k)
+def test_sort_starts_matches_reference_compacted(k):
+    """A chunk's codes through the host sort path's _count_chunk and
+    _finish_chunk."""
+    codes = _codes(k)
+    planes, valid = ref_ext.extract_kmers(jnp.asarray(codes), k, "forward")
     up, c, n = ref_count.sort_count_compacted(planes, valid)
-    tk, tc, tn = cnt.sort_count_compacted(key, tvalid, k)
-    assert int(tn) == int(n) > 0
-    np.testing.assert_array_equal(tc.numpy(), np.asarray(c))
-    _assert_keys(tk, up, k)
+    got = counter._finish_chunk(*counter._count_chunk(codes, k, "forward",
+                                                      "cpu"))
+    assert len(got) == 1 and len(got[0][2]) == int(n) > 0
+    _assert_ref_compacted(got[0], up, c, n, k)
     if 2 * k % 32 == 0:  # the all-ones k-mer survives as the last unique
         s_hi, s_lo = mw.sentinel_hilo(k)
-        hi, lo = mw.to_hilo(tk[:int(tn)].numpy(), k)
-        assert (int(hi[-1]), int(lo[-1])) == (s_hi, s_lo)
-        assert int(tc[int(tn) - 1]) == 2 * k + 40 - k + 1
+        assert (int(got[0][0][-1]), int(got[0][1][-1])) == (s_hi, s_lo)
+        assert int(got[0][2][-1]) == 2 * k + 40 - k + 1
 
 
 @pytest.mark.parametrize("k", KS)
-def test_sort_count_compacted_all_invalid(k):
-    """An input with no valid window: nothing counted, sentinel / 0
-    everywhere."""
+def test_sort_starts_all_invalid(k):
+    """An input with no valid window: nothing counted."""
     codes = np.full(256, 255, np.uint8)
     planes, valid, key, tvalid = _both_extract(codes, k)
     up, c, n = ref_count.sort_count_compacted(planes, valid)
-    tk, tc, tn = cnt.sort_count_compacted(key, tvalid, k)
-    assert int(tn) == int(n) == 0
-    assert not tc.any()
-    _assert_keys(tk, up, k)
-    assert mw.is_sentinel(tk, k).all()
+    got = _host_sort(key, tvalid, k)
+    assert int(n) == 0 and len(got[2]) == 0
+    _assert_ref_compacted(got, up, c, n, k)
 
 
 @pytest.mark.parametrize("keys,valid,want_k,want_c", [
@@ -88,7 +108,7 @@ def test_sort_count_compacted_all_invalid(k):
      [1, 2, 0xFFFFFFFF], [1, 1, 1]),
     ([0] * 16, [0] * 16, [], []),
 ])
-def test_sort_count_compacted_small_cases(keys, valid, want_k, want_c):
+def test_sort_starts_small_cases(keys, valid, want_k, want_c):
     """The cases of tests/test_kernels.py (basic, sentinel collision,
     all invalid), one 32-bit plane (k = 16)."""
     k = 16
@@ -96,15 +116,10 @@ def test_sort_count_compacted_small_cases(keys, valid, want_k, want_c):
     v = np.array(valid, bool)
     up, c, n = ref_count.sort_count_compacted(
         [jnp.asarray(planes[0])], jnp.asarray(v))
-    tk, tc, tn = cnt.sort_count_compacted(_port_key(planes, k),
-                                          torch.from_numpy(v), k)
-    assert int(tn) == int(n) == len(want_k)
-    n = int(tn)
-    np.testing.assert_array_equal(tc.numpy(), np.asarray(c))
-    _assert_keys(tk, up, k)
-    assert mw.to_planes(tk.numpy(), k)[0][:n].tolist() == want_k
-    assert tc[:n].tolist() == want_c
-    assert not tc[n:].any() and mw.is_sentinel(tk[n:], k).all()
+    got = _host_sort(_port_key(planes, k), torch.from_numpy(v), k)
+    assert int(n) == len(want_k)
+    _assert_ref_compacted(got, up, c, n, k)
+    assert got[1].tolist() == want_k and got[2].tolist() == want_c
 
 
 def _runs(k, n_runs, seed):
@@ -312,16 +327,16 @@ def test_count_suffix_longer_than_k_raises(tmp_path, no_shard):
             fn([fa], 5, count_suffix="ACGTAC", **kw)
 
 
-# ------------------------------------------- MERYL_TPU_COMPACT=device
+# --------------------------------------- the host sort path, a whole count
 
 @pytest.mark.parametrize("k,mode,suffix", [
     (21, "canonical", None), (16, "forward", None), (33, "canonical", None),
     (64, "forward", None), (21, "canonical", "AC")])
-def test_compact_device_chunk_path(tmp_path, no_shard, monkeypatch, k, mode,
-                                   suffix):
-    """MERYL_TPU_COMPACT=device (read when a chunk is dispatched):
-    equal arrays to the default host compaction and to the reference's
-    compacted pipeline."""
+def test_host_sort_chunk_path_matches_reference_compacted(
+        tmp_path, no_shard, monkeypatch, k, mode, suffix):
+    """A count on the host sort path (sort_starts on the device, run
+    lengths and the merge on the host): equal arrays to the reference's
+    device-compacted pipeline."""
     monkeypatch.setenv("MERYL_TPU_DEVICE_ACC", "0")
     rng = np.random.default_rng(k + 3)
     seqs = ["".join("ACTG"[c] for c in rng.integers(0, 4, size=250))
@@ -329,19 +344,15 @@ def test_compact_device_chunk_path(tmp_path, no_shard, monkeypatch, k, mode,
     fa = str(tmp_path / "in.fa")
     _write_fa(fa, seqs)
     kw = dict(mode=mode, chunk_len=1 << 12, count_suffix=suffix)
-    host = counter.count_to_arrays([fa], k, device="cpu", **kw)
-    monkeypatch.setenv("MERYL_TPU_COMPACT", "device")
-    assert counter._compact_device()
     seen = []
-    real = counter.cnt.sort_count_compacted
-    monkeypatch.setattr(counter.cnt, "sort_count_compacted",
+    real = counter.cnt.sort_starts
+    monkeypatch.setattr(counter.cnt, "sort_starts",
                         lambda *a: seen.append(1) or real(*a))
-    dev = counter.count_to_arrays([fa], k, device="cpu", **kw)
+    got = counter.count_to_arrays([fa], k, device="cpu", **kw)
     assert seen
-    for a, b in zip(host, dev):
-        np.testing.assert_array_equal(a, b)
     # the reference reads its knob at import into this global
     monkeypatch.setattr(ref_counter, "_COMPACT_DEVICE", True)
     ref = ref_counter.count_to_arrays([fa], k, **kw)
-    for a, b in zip(ref, dev):
+    assert len(ref[2])
+    for a, b in zip(ref, got):
         np.testing.assert_array_equal(a, b)

@@ -397,11 +397,21 @@ def _fed(k, codes, dev, chunk=1 << 14, exp=1 << 14):
     return acc
 
 
+def _download_pageable_int64(acc):
+    """The accumulator's keys and int64 counts, each with `.cpu()` into
+    pageable host memory: the plainest download."""
+    lmax = acc.download_lmax()
+    keys = acc._acc[0][:, :lmax].reshape((-1,) + acc._tail()).cpu().numpy()
+    counts = acc._acc[1][:, :lmax].reshape(-1).cpu().numpy()
+    keepm = counts > 0
+    hi, lo = mw.to_hilo(keys[keepm], acc.k)
+    return hi, lo, counts[keepm].astype(np.uint64)
+
+
 @pytest.mark.parametrize("k", [10, 16, 21, 32, 33])
 def test_downloads_equal_on_card(cuda, monkeypatch, k):
-    """The pinned dense download and the gap-packed one decode to what
-    the pageable int64 download gives, and to the CPU's result."""
-    from meryl_tpu_torch.tools.ab_download import download_pageable_int64
+    """The pinned dense download decodes to what a pageable int64
+    download gives, and to the CPU's result."""
     monkeypatch.setattr(counter, "PIN_MIN_BYTES", 1 << 12)  # pin here too
     rng = np.random.default_rng(k)
     codes = rng.integers(0, 4, size=1 << 17).astype(np.uint8)
@@ -409,14 +419,12 @@ def test_downloads_equal_on_card(cuda, monkeypatch, k):
     codes[5000:5000 + 3 * k] = 3           # the all-ones k-mer
     codes[7000:7000 + 21 * 900] = np.tile(codes[7000:7021], 900)  # hot
     outs = {}
-    for arm in ("pageable", "dense", "packed", "cpu"):
+    for arm in ("pageable", "dense", "cpu"):
         acc = _fed(k, codes, "cpu" if arm == "cpu" else cuda)
-        monkeypatch.setenv("MERYL_TPU_PACK_D2H",
-                           "1" if arm == "packed" else "0")
         if arm == "pageable":
-            acc.download = lambda acc=acc: download_pageable_int64(acc)
+            acc.download = lambda acc=acc: _download_pageable_int64(acc)
         outs[arm] = acc.finalize()
-    for arm in ("dense", "packed", "cpu"):
+    for arm in ("dense", "cpu"):
         for a, b in zip(outs[arm], outs["pageable"]):
             np.testing.assert_array_equal(a, b)
     assert len(outs["cpu"][2]) > 1000
@@ -428,28 +436,6 @@ def test_to_host_small_and_pinned(cuda, n):
     np.testing.assert_array_equal(counter._to_host(x), x.cpu().numpy())
     np.testing.assert_array_equal(counter._to_host(x.cpu()),
                                   x.cpu().numpy())
-
-
-@pytest.mark.parametrize("k,bases", [(12, 10 ** 6), (21, 40_000),
-                                     (32, 5)])
-def test_pack_for_download_cuda_matches_cpu(cuda, k, bases):
-    rng = np.random.default_rng(k)
-    B, La = 16, 512
-    n = rng.integers(0, La, size=B)
-    gaps = rng.integers(1, 1 << min(20, 2 * k - 10), size=(B, La))
-    gaps[:, La // 3] = 1 << min(40, 2 * k - 6)
-    u = np.cumsum(gaps, axis=1).astype(np.uint64)
-    valid = np.arange(La)[None, :] < n[:, None]
-    key = mw.from_hilo(np.zeros(B * La, np.uint64), u.reshape(-1), k) \
-        .reshape(B, La)
-    key[~valid] = mw.sentinel_words(k)[0]
-    cnt = np.where(valid, rng.integers(1, 1 << 12, size=(B, La)), 0)
-    cnt[:, 5] = np.where(valid[:, 5], (1 << 32) - 1, 0)
-    key, cnt = torch.from_numpy(key), torch.from_numpy(cnt)
-    want = accum.pack_for_download_fused(key, cnt, k, bases, 384)
-    got = accum.pack_for_download_fused(key.to(cuda), cnt.to(cuda), k,
-                                        bases, 384)
-    assert torch.equal(got.cpu(), want)
 
 
 def _reads_file(tmp_path, n=400, ln=400, seed=5):
@@ -484,18 +470,16 @@ def test_batched_cuda_matches_plain(cuda, tmp_path, monkeypatch, acc):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("compact", ["host", "device"])
 @pytest.mark.parametrize("k,mode,suffix", [(21, "canonical", "ACG"),
                                            (33, "forward", "T"),
                                            (21, "canonical", None)])
 def test_suffix_and_compact_cuda_match_cpu(cuda, tmp_path, monkeypatch, k,
-                                           mode, suffix, compact):
+                                           mode, suffix):
+    """The host sort path, with and without count-suffix, on the card."""
     monkeypatch.setenv("MERYL_TPU_DEVICE_ACC", "0")
-    monkeypatch.setenv("MERYL_TPU_COMPACT", compact)
     fa = _reads_file(tmp_path, n=100)
     kw = dict(mode=mode, chunk_len=1 << 14, count_suffix=suffix)
     got = counter.count_to_arrays([fa], k, device="cuda", **kw)
-    monkeypatch.setenv("MERYL_TPU_COMPACT", "host")
     want = counter.count_to_arrays([fa], k, device="cpu", **kw)
     assert len(want[2])
     for g, w in zip(got, want):
@@ -549,30 +533,27 @@ def _lookup_table(k, n, seed):
     return (hi, lo, c), mw.from_hilo(qhi, qlo, k), rng.random(len(qlo)) < .9
 
 
-@pytest.mark.parametrize("regime", ["bsearch", "join", "grid", "sortjoin"])
+@pytest.mark.parametrize("regime", ["bsearch", "grid"])
 @pytest.mark.parametrize("k", [16, 21, 32, 33, 64])
-def test_lookup_regimes_cuda_match_cpu(cuda, k, regime):
+def test_lookup_regimes_cuda_match_cpu(cuda, monkeypatch, k, regime):
+    """The binary search on a device-resident table, and the grid join
+    on a table that MERYL_TPU_LOOKUP_DEVICE_GB keeps on the host."""
     from meryl_tpu_torch import lookup
 
     arrays, key, valid = _lookup_table(k, 20000, k)
+    if regime == "grid":
+        monkeypatch.setenv("MERYL_TPU_LOOKUP_DEVICE_GB", "1e-6")
     out = []
     for dev in ("cpu", cuda):
         t = lookup.ExactLookup(_ArraysDB(k, *arrays), device=dev)
-        if regime == "bsearch":
-            t.JOIN_MIN_Q = 1 << 62
-        elif regime == "join":
-            t.BACJ_MIN_N, t.JOIN_MIN_Q, t.JOIN_MIN_N = 1 << 62, 1, 1
-            t.JOIN_SLAB, t.JOIN_R0, t._LDB_TARGET = 1 << 14, 4, 1 << 11
-        elif regime == "grid":
-            t.BACJ_MIN_N, t.JOIN_MIN_Q, t.BACJ_SLAB = 1, 1, 1 << 14
+        assert t._device_resident == (regime == "bsearch")
+        if regime == "grid":
+            t.JOIN_MIN_Q, t.BACJ_SLAB = 1, 1 << 14
         kt = torch.from_numpy(key).to(dev)
         vt = torch.from_numpy(valid).to(dev)
-        if regime == "sortjoin":
-            out.append(t.values_join(kt, vt))
-        else:
-            out.append(t.values_bulk(kt, vt))
-            np.testing.assert_array_equal(t.values_bulk(kt, vt, True),
-                                          (out[-1] > 0).astype(np.uint32))
+        out.append(t.values_bulk(kt, vt))
+        np.testing.assert_array_equal(t.values_bulk(kt, vt, True),
+                                      (out[-1] > 0).astype(np.uint32))
     np.testing.assert_array_equal(out[0], out[1])
     assert (out[1] == km.VALUE_MAX).any()
 

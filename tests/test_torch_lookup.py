@@ -1,6 +1,7 @@
 """The port's ExactLookup (meryl_tpu_torch/lookup.py) against the
-reference's (meryl_tpu/lookup.py) on the CPU: the binary search, the
-sort-merge join, the host-resident table and the point probes, on the
+reference's (meryl_tpu/lookup.py) on the CPU: the binary search (point
+batches and bulk batches with duplicates, hot keys and a -min filter),
+the host-resident table, the point probes and the regime choice, on the
 same seeded tables and queries.  Integer results are equal bit for bit
 (no tolerance)."""
 
@@ -111,10 +112,6 @@ def test_bulk_bsearch_and_sort_join_match_reference(tables):
     want = t["ref"]._values_bulk_bsearch(planes, t["valid"])
     np.testing.assert_array_equal(
         t["port"]._values_bulk_bsearch(key, t["valid"]), want)
-    np.testing.assert_array_equal(t["port"].values_join(key, t["valid"]),
-                                  t["ref"].values_join(planes, t["valid"]))
-    np.testing.assert_array_equal(t["port"].values_join(key, t["valid"]),
-                                  want)
     ex = t["port"].values_bulk(key, t["valid"], exists_only=True)
     np.testing.assert_array_equal(ex, (want > 0).astype(np.uint32))
 
@@ -223,9 +220,9 @@ def test_cuda_device_without_cuda_fails_clearly(monkeypatch):
 
 
 def test_regime_choice(monkeypatch):
-    """With the port's thresholds a device-resident table answers a bulk
-    batch by binary search at any size; a table past the device budget
-    takes the grid join from JOIN_MIN_Q valid queries."""
+    """A device-resident table answers a bulk batch by binary search at
+    any size; a table past the device budget takes the grid join from
+    JOIN_MIN_Q valid queries."""
     k = 21
     rng = np.random.default_rng(12)
     hi, lo, c = table_arrays(rng, 1 << 15, k)
@@ -236,8 +233,7 @@ def test_regime_choice(monkeypatch):
     t.JOIN_MIN_Q = 1 << 10
     lk.reset_stats()
     np.testing.assert_array_equal(t.values_bulk(key, valid), want)
-    assert lk.STATS["bsearch_calls"] >= 1 and t._bacj is None \
-        and t._grouped is None
+    assert lk.STATS["bsearch_calls"] >= 1 and t._bacj is None
     monkeypatch.setenv("MERYL_TPU_LOOKUP_DEVICE_GB", "1e-6")
     t = lk.ExactLookup(_FakeDB(k, hi, lo, c), device="cpu")
     t.JOIN_MIN_Q, t.BACJ_SLAB = 1 << 10, 1 << 13
@@ -245,3 +241,70 @@ def test_regime_choice(monkeypatch):
     np.testing.assert_array_equal(t.values_bulk(key, valid), want)
     assert isinstance(t._bacj, dict)
     assert lk.STATS["bacj_slabs"] + lk.STATS["bacj_rejected_slabs"] >= 1
+
+
+# ---- bulk batches on a device-resident table: the binary search
+
+def _bulk_pair(k, hi, lo, c, qhi, qlo, valid, min_value=0):
+    """values_bulk of both packages (the port's a binary search, also
+    in exists mode) -> the port's values."""
+    port = lk.ExactLookup(_FakeDB(k, hi, lo, c), min_value, device="cpu")
+    ref = ref_lk.ExactLookup(_FakeDB(k, hi, lo, c), min_value)
+    planes = km.planes_from_hilo(qhi, qlo, km.num_planes(k))
+    key = mw.from_planes(planes, k)
+    lk.reset_stats()
+    got = port.values_bulk(key, valid)
+    assert lk.STATS["bsearch_calls"] >= 1 and port._bacj is None
+    np.testing.assert_array_equal(got, ref.values_bulk(planes, valid))
+    np.testing.assert_array_equal(port.values_bulk(key, valid, True),
+                                  (got > 0).astype(np.uint32))
+    return got
+
+
+@pytest.mark.parametrize("k", [16, 21, 33])
+def test_bulk_bsearch_duplicates_match_reference(k):
+    """Hits, misses, runs of duplicate hits and misses, the all-ones
+    k-mer 300 times, 10 % invalid."""
+    rng = np.random.default_rng(40 + k)
+    hi, lo, c = table_arrays(rng, 20000, k)
+    take = rng.integers(0, len(lo), size=3000)
+    mhi, mlo = _keys(rng, 3000, k)
+    dup = rng.integers(0, len(lo), size=5)
+    qhi = np.concatenate([hi[take], mhi, np.repeat(hi[dup], 200),
+                          np.repeat(mhi[:5], 150), hi[-1:].repeat(300)])
+    qlo = np.concatenate([lo[take], mlo, np.repeat(lo[dup], 200),
+                          np.repeat(mlo[:5], 150), lo[-1:].repeat(300)])
+    order = rng.permutation(len(qlo))
+    qhi, qlo = qhi[order], qlo[order]
+    valid = rng.random(len(qlo)) < 0.9
+    got = _bulk_pair(k, hi, lo, c, qhi, qlo, valid)
+    np.testing.assert_array_equal(
+        got, want_values(hi, lo, c, qhi, qlo, valid))
+
+
+@pytest.mark.parametrize("k", [16, 21, 33])
+def test_bulk_bsearch_hot_keys_match_reference(k):
+    """Thousands of copies of one hit and one miss among random hits."""
+    rng = np.random.default_rng(40 + k)
+    hi, lo, c = table_arrays(rng, 20000, k)
+    mhi, mlo = _keys(rng, 1, k)
+    some = rng.integers(0, len(lo), 1000)
+    qhi = np.concatenate([np.repeat(hi[7], 2000), np.repeat(mhi, 2000),
+                          hi[some]])
+    qlo = np.concatenate([np.repeat(lo[7], 2000), np.repeat(mlo, 2000),
+                          lo[some]])
+    valid = np.ones(len(qlo), bool)
+    got = _bulk_pair(k, hi, lo, c, qhi, qlo, valid)
+    np.testing.assert_array_equal(
+        got, want_values(hi, lo, c, qhi, qlo, valid))
+
+
+def test_bulk_bsearch_min_filter_matches_reference():
+    k = 21
+    rng = np.random.default_rng(5)
+    hi, lo, c = table_arrays(rng, 20000, k)
+    c = (c % 10).astype(np.uint32) + 1
+    take = rng.integers(0, len(lo), size=4000)
+    got = _bulk_pair(k, hi, lo, c, hi[take], lo[take],
+                     np.ones(len(take), bool), min_value=5)
+    np.testing.assert_array_equal(got, np.where(c[take] >= 5, c[take], 0))

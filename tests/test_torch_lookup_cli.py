@@ -156,27 +156,33 @@ def test_estimate_and_memory_match_reference(data):
 
 
 def test_bulk_regimes_give_the_same_bytes(data, monkeypatch):
-    """The assembly's positions through each regime the port can force
-    (binary search, routed join, grid join) give one output."""
+    """The assembly's positions through both bulk regimes (the binary
+    search on a device-resident table, the grid join on a table that
+    MERYL_TPU_LOOKUP_DEVICE_GB keeps on the host) give one output."""
+    from meryl_tpu_torch import lookup
     from meryl_tpu_torch.lookup import ExactLookup
 
     d = data["d"]
     outs = []
-    for attrs in (dict(JOIN_MIN_Q=1 << 62),
-                  dict(BACJ_MIN_N=1 << 62, JOIN_MIN_Q=1, JOIN_MIN_N=1,
-                       JOIN_SLAB=1 << 14, JOIN_R0=4, _LDB_TARGET=1 << 11),
-                  dict(BACJ_MIN_N=1, JOIN_MIN_Q=1, BACJ_SLAB=1 << 14)):
+    for env, attrs, stat in (
+            ({}, {}, "bsearch_calls"),
+            ({"MERYL_TPU_LOOKUP_DEVICE_GB": "1e-6"},
+             dict(JOIN_MIN_Q=1, BACJ_SLAB=1 << 14), "bacj_slabs")):
         with monkeypatch.context() as m:
+            for a, v in env.items():
+                m.setenv(a, v)
             for a, v in attrs.items():
                 m.setattr(ExactLookup, a, v)
             out = str(d / "regime.txt")
+            lookup.reset_stats()
             assert lookup_cli.main(["-wig-count", "-sequence",
                                     str(d / "asm.fa"), "-mers",
                                     str(d / "b.meryl"), "-output", out,
                                     "-device", "cpu"]) == 0
+            assert lookup.STATS[stat] > 0, lookup.STATS
             with open(out, "rb") as f:
                 outs.append(f.read())
-    assert outs[0] == outs[1] == outs[2] and outs[0]
+    assert outs[0] == outs[1] and outs[0]
 
 
 def test_position_lookup_matches_reference(data):
