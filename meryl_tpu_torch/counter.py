@@ -28,13 +28,16 @@ copies of meryl_tpu's; nothing here imports JAX or meryl_tpu.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import itertools
 import os as _os
+import threading
 import time as _time
 
 import numpy as np
 import torch
 
+from . import _build
 from . import kmer as km
 from . import resolve_device
 from . import trace
@@ -220,6 +223,75 @@ def insert_runs(big, small_runs):
         lo = np.insert(lo, pos[new], slo[new])
         out = np.insert(out, pos[new], sc[new])
     return hi, lo, out
+
+
+# one-card finalizes by path (the native pass of csrc/finalize_host.cpp,
+# or numpy), and the small-run entries the native pass merged, since the
+# process began
+FINALIZE_STATS = {"native": 0, "numpy": 0, "merged": 0}
+_stats_lock = threading.Lock()
+_finalize_lib = None     # the native pass; False once it failed to build
+# threads of the native finalize pass: on an H100 host's 8 cores four
+# fill a 16 M-entry download in half the time of one, and eight gain
+# nothing more (tools/ab_finalize.py)
+FINALIZE_THREADS = 4
+
+
+def _native_finalize():
+    """The native finalize pass (csrc/finalize_host.cpp), built at first
+    use, or None when it cannot be built or MERYL_TPU_NO_NATIVE is
+    set."""
+    global _finalize_lib
+    if _os.environ.get("MERYL_TPU_NO_NATIVE"):
+        return None
+    if _finalize_lib is None:
+        try:
+            lib = _build.load("finalize_host", ".cpp")
+        except (OSError, RuntimeError):
+            _finalize_lib = False
+        else:
+            p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+            lib.mt_finalize_plan.argtypes = [p, i64, i32, p, p, i64, p, p,
+                                             i32]
+            lib.mt_finalize_plan.restype = i64
+            lib.mt_finalize_fill.argtypes = [p, p, i64, i32, p, p, p, i64,
+                                             p, p, p, p, p, i32]
+            lib.mt_finalize_fill.restype = None
+            _finalize_lib = lib
+    return _finalize_lib or None
+
+
+def finalize_dense(lib, keys, counts, small, threads: int = 1):
+    """The dense download as fetched (keys: (n,) or (n, 2) int64 words,
+    each unsigned word ^ 2^63; counts: (n,) uint32) with one small
+    sorted unique run (hi, lo, counts) merged in, in one native pass
+    -> sorted unique (hi, lo, counts-u32): what mw.to_hilo, merge_runs
+    of the two and its clamp give, written once.  A binary search
+    places each small key; `threads` fill disjoint ranges of the
+    download."""
+    keys = np.ascontiguousarray(keys, np.int64)
+    counts = np.ascontiguousarray(counts, np.uint32)
+    words = 1 if keys.ndim == 1 else 2
+    n = len(counts)
+    shi = np.ascontiguousarray(small[0], np.uint64)
+    slo = np.ascontiguousarray(small[1], np.uint64)
+    sc = np.minimum(small[2], km.VALUE_MAX).astype(np.uint32)
+    m = len(sc)
+    pos = np.empty(m, np.int64)
+    hit = np.empty(m, np.uint8)
+    out = n + lib.mt_finalize_plan(keys.ctypes.data, n, words,
+                                   shi.ctypes.data, slo.ctypes.data, m,
+                                   pos.ctypes.data, hit.ctypes.data, threads)
+    # one-word keys: hi stays zeros, as mw.to_hilo leaves it
+    hi = np.zeros(out, np.uint64) if words == 1 else np.empty(out, np.uint64)
+    lo = np.empty(out, np.uint64)
+    c = np.empty(out, np.uint32)
+    lib.mt_finalize_fill(keys.ctypes.data, counts.ctypes.data, n, words,
+                         shi.ctypes.data, slo.ctypes.data, sc.ctypes.data, m,
+                         pos.ctypes.data, hit.ctypes.data,
+                         None if words == 1 else hi.ctypes.data,
+                         lo.ctypes.data, c.ctypes.data, threads)
+    return hi, lo, c
 
 
 def _unique_run(hi, lo):
@@ -580,18 +652,20 @@ class DeviceAccCounter:
         return min(self.La, accum._eighth_round(
             max(256, self._max_run or self.La)))
 
-    def download(self):
+    def download(self, decode: bool = True):
         """The accumulator as one sorted unique (hi, lo, counts-u64)
-        run (_download_dense)."""
-        return self._download_dense(self.download_lmax())
+        run, or with decode False as fetched (_download_dense)."""
+        return self._download_dense(self.download_lmax(), decode)
 
-    def _download_dense(self, lmax: int):
+    def _download_dense(self, lmax: int, decode: bool = True):
         """Dense download: the used entries (count > 0) are compacted on
         the device in row order, which is key order; their key words
         and their counts, narrowed to 32-bit patterns (counts saturate
         at the 32-bit VALUE_MAX in merge_cells), are laid out in ONE
         int32 device buffer that crosses in one copy.  The host only
-        reinterprets it."""
+        reinterprets it: decoded to (hi, lo, counts-u64), or with
+        decode False left as (int64 key words, u32 counts) views of the
+        fetched buffer, which finalize_dense reads in place."""
         key, counts = self._acc[0][:, :lmax], self._acc[1][:, :lmax]
         keep = counts > 0
         ukey = key[keep]
@@ -603,12 +677,17 @@ class DeviceAccCounter:
         host = self._fetch(buf)
         self.wire_d2h_bytes += host.nbytes
         with trace.span("count.host_decode"):
-            hi, lo = mw.to_hilo(host[:nk].view(np.int64).reshape(
-                (n,) + self._tail()), self.k)
+            keys = host[:nk].view(np.int64).reshape((n,) + self._tail())
+            if not decode:
+                return keys, host[nk:].view(np.uint32)
+            hi, lo = mw.to_hilo(keys, self.k)
             return hi, lo, host[nk:].view(np.uint32).astype(np.uint64)
 
     def finalize(self):
-        """-> sorted unique (hi, lo, counts-u32)."""
+        """-> sorted unique (hi, lo, counts-u32).  The download, decoded
+        and merged with the captured windows, the host-counted chunks
+        and the all-ones k-mer in one native pass (finalize_dense), or
+        where it is not built decoded and merged by numpy."""
         self._resolve_batch()
         if self._staged:
             self._merge()
@@ -617,16 +696,24 @@ class DeviceAccCounter:
         if self._nallones:
             n_allones = self._fetch_int(torch.stack(self._nallones).sum())
 
+        lib = _native_finalize()
         runs = list(self._fallback_runs)
+        dense = None
         if self._acc is not None:
             with trace.span("count.download") as sp:
-                runs.insert(0, self.download())
+                dense = self.download(decode=lib is None)
             self.download_s = sp.seconds
         # the host merge as a leaf of its own: a trace's gap past the
         # download's many operators is then still named after finalize
         with trace.span("count.finalize"):
             if self._ovf_keys:
                 runs.append(self._capture_run())
+            if lib is not None:
+                return self._finalize_native(lib, dense, runs, n_allones)
+            with _stats_lock:
+                FINALIZE_STATS["numpy"] += 1
+            if dense is not None:
+                runs.insert(0, dense)
             hi, lo, counts = merge_runs(runs)
             if n_allones:
                 ao_hi, ao_lo, _ = self._allones_run(0)
@@ -639,6 +726,23 @@ class DeviceAccCounter:
                     lo = np.append(lo, ao_lo)
                     counts = np.append(counts, np.uint32(n))
             return hi, lo, counts
+
+    def _finalize_native(self, lib, dense, runs, n_allones):
+        """finalize's merge in one native pass: the small runs (the
+        captured windows, the host-counted chunks, the all-ones k-mer)
+        merged first by merge_runs, then into the dense download as it
+        was fetched."""
+        if n_allones:
+            runs.append(self._allones_run(n_allones))
+        small = merge_runs(runs)
+        if dense is None:
+            dense = (np.zeros((0,) + self._tail(), np.int64),
+                     np.zeros(0, np.uint32))
+        with _stats_lock:
+            FINALIZE_STATS["native"] += 1
+            FINALIZE_STATS["merged"] += len(small[2])
+        return finalize_dense(lib, *dense, small, min(
+            FINALIZE_THREADS, len(_os.sched_getaffinity(0))))
 
 
 def device_bytes_per_base(k: int) -> int:

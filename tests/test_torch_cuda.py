@@ -397,21 +397,25 @@ def _fed(k, codes, dev, chunk=1 << 14, exp=1 << 14):
     return acc
 
 
-def _download_pageable_int64(acc):
+def _download_pageable_int64(acc, decode=True):
     """The accumulator's keys and int64 counts, each with `.cpu()` into
-    pageable host memory: the plainest download."""
+    pageable host memory: the plainest download; decoded, or with decode
+    False as the key words and u32 counts the native finalize reads."""
     lmax = acc.download_lmax()
     keys = acc._acc[0][:, :lmax].reshape((-1,) + acc._tail()).cpu().numpy()
     counts = acc._acc[1][:, :lmax].reshape(-1).cpu().numpy()
     keepm = counts > 0
+    if not decode:
+        return keys[keepm], counts[keepm].astype(np.uint32)
     hi, lo = mw.to_hilo(keys[keepm], acc.k)
     return hi, lo, counts[keepm].astype(np.uint64)
 
 
 @pytest.mark.parametrize("k", [10, 16, 21, 32, 33])
 def test_downloads_equal_on_card(cuda, monkeypatch, k):
-    """The pinned dense download decodes to what a pageable int64
-    download gives, and to the CPU's result."""
+    """The pinned dense download finalizes to what a pageable int64
+    download gives, and to the CPU's result, through the native tail and
+    through numpy's (MERYL_TPU_NO_NATIVE)."""
     monkeypatch.setattr(counter, "PIN_MIN_BYTES", 1 << 12)  # pin here too
     rng = np.random.default_rng(k)
     codes = rng.integers(0, 4, size=1 << 17).astype(np.uint8)
@@ -419,15 +423,24 @@ def test_downloads_equal_on_card(cuda, monkeypatch, k):
     codes[5000:5000 + 3 * k] = 3           # the all-ones k-mer
     codes[7000:7000 + 21 * 900] = np.tile(codes[7000:7021], 900)  # hot
     outs = {}
-    for arm in ("pageable", "dense", "cpu"):
-        acc = _fed(k, codes, "cpu" if arm == "cpu" else cuda)
-        if arm == "pageable":
-            acc.download = lambda acc=acc: _download_pageable_int64(acc)
-        outs[arm] = acc.finalize()
-    for arm in ("dense", "cpu"):
-        for a, b in zip(outs[arm], outs["pageable"]):
+    for tail in ("native", "numpy"):
+        if tail == "numpy":
+            monkeypatch.setenv("MERYL_TPU_NO_NATIVE", "1")
+        else:
+            monkeypatch.delenv("MERYL_TPU_NO_NATIVE", raising=False)
+        for arm in ("pageable", "dense", "cpu"):
+            acc = _fed(k, codes, "cpu" if arm == "cpu" else cuda)
+            if arm == "pageable":
+                acc.download = lambda decode=True, acc=acc: \
+                    _download_pageable_int64(acc, decode)
+            before = counter.FINALIZE_STATS[tail]
+            outs[tail, arm] = acc.finalize()
+            assert counter.FINALIZE_STATS[tail] == before + 1
+    for key, out in outs.items():
+        for a, b in zip(out, outs["numpy", "pageable"]):
+            assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
-    assert len(outs["cpu"][2]) > 1000
+    assert len(outs["numpy", "cpu"][2]) > 1000
 
 
 @pytest.mark.parametrize("n", [10, (1 << 17) - 1, 1 << 17, (1 << 20) + 3])
