@@ -43,7 +43,9 @@ Phases, each printing its lines; any failure exits non-zero:
      phase 6's, and both the extraction kernel and the set-op row sort
      (the final union-sum of the batch DBs) were launched; then a
      resume from a manifest that says batch 0 is done, with that
-     batch's DB kept: an equal DB, and batch 0 not counted again
+     batch's DB kept: an equal DB, and batch 0 not counted again.  The
+     batched count's rate and layers are measured by the benchmark's
+     cell `ecoli-k12-illumina-k21.count-batched` (memory=1, 3 batches)
  10. count-suffix and the host sort path on a subsample of the reads
      (at the production chunk), against a numpy brute force; the host
      path's peak device bytes a base beside the plan's model
@@ -859,7 +861,9 @@ def phase_batched(torch, cli, counter, extract_cuda, rowsort, MerylDB, fq,
               f"{plan['batches']} batches of {plan['batch_bases']} expected "
               f"k-mers, {n} real batches over {st['chunks']} chunks; "
               f"{bases / wall / 1e6:.3f} Mbases/s ({wall:.3f} s wall incl. "
-              f"the final union-sum {st['merge_wall_s']:.3f} s); DB equal to "
+              f"the batches' flushes {st['t_flush_s']:.3f} s and the final "
+              f"union-sum of {st['merge_entries']} entries "
+              f"{st['t_merge_s']:.3f} s); DB equal to "
               f"the unbatched count's; manifest and {len(seen['batch_dbs'])} "
               f"batch DBs seen while counting, gone after; extract LAUNCHES "
               f"{ext_launches}, rowsort LAUNCHES {sort_launches}; "

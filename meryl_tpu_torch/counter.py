@@ -27,6 +27,7 @@ copies of meryl_tpu's; nothing here imports JAX or meryl_tpu.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import itertools
@@ -877,6 +878,45 @@ def _use_device_acc(paths, k, device, count_suffix=None) -> int:
 LAST_WIRE_STATS: dict = {}
 
 
+def _acc_counters(acc) -> dict:
+    """A device accumulator's own counters, which LAST_WIRE_STATS sums
+    over a count's accumulators (one, or one a batch)."""
+    return {"h2d_bytes": acc.wire_h2d_bytes, "d2h_bytes": acc.wire_d2h_bytes,
+            "t_download_s": acc.download_s, "chunks": acc.n_chunks,
+            "merges": acc.n_merges, "regrows": acc.n_regrows,
+            "recounts": acc.n_recounts, "captured": acc.n_captured}
+
+
+def _publish_wire_stats(sp: dict, accs: dict, *, bases: int,
+                        t_finalize_s: float, salvaged: bool,
+                        native_packs: int):
+    """LAST_WIRE_STATS of a count: `sp` its spans (trace.since), `accs`
+    its accumulators' counters (_acc_counters, summed; a missing key
+    reads 0), `bases` the codes read, `t_finalize_s` the finalize
+    spans' whole seconds."""
+    def s(name):
+        return round(sp.get(f"count.{name}_s", 0.0), 4)
+
+    def n(name):
+        return sp.get(f"count.{name}_n", 0)
+
+    LAST_WIRE_STATS.clear()
+    LAST_WIRE_STATS.update(
+        h2d_bytes=accs["h2d_bytes"], d2h_bytes=accs["d2h_bytes"],
+        bases=bases, scan_stall_s=s("wait_reader"),
+        reader_busy_s=round(s("reader_scan") + s("reader_pack"), 4),
+        t_finalize_s=round(t_finalize_s, 4),
+        n_h2d=n("h2d"), n_dispatch=n("dispatch"), n_fetch=n("fetch"),
+        t_h2d_s=s("h2d"), t_dispatch_s=s("dispatch"), t_fetch_s=s("fetch"),
+        host_pack_s=s("host_pack"), host_finalize_s=s("host_decode"),
+        t_download_s=round(accs["t_download_s"], 4),
+        chunks=accs["chunks"], merges=accs["merges"],
+        regrows=accs["regrows"], recounts=accs["recounts"],
+        captured=accs["captured"], salvaged=salvaged,
+        # native 2-bit packs: one a chunk, one more a recounted chunk
+        native_packs=native_packs)
+
+
 def _prefetch_chunks(chunker, depth: int = 2, transform=None):
     """Iterate a SequenceChunker through a small queue fed by a reader
     thread: the file scan and the per-chunk `transform` (the 2-bit
@@ -973,29 +1013,10 @@ def count_to_arrays_device_acc(paths, k: int, mode: str, hpc: bool,
             except AccCapacity:  # the final merge itself outgrew the budget
                 salvage_runs = acc.salvage()
                 out = merge_runs(salvage_runs)
-    sp = trace.since(spans0)
-
-    def s(name):
-        return round(sp.get(f"count.{name}_s", 0.0), 4)
-
-    def n(name):
-        return sp.get(f"count.{name}_n", 0)
-
-    LAST_WIRE_STATS.clear()
-    LAST_WIRE_STATS.update(
-        h2d_bytes=acc.wire_h2d_bytes, d2h_bytes=acc.wire_d2h_bytes,
-        bases=nbases, scan_stall_s=s("wait_reader"),
-        reader_busy_s=round(s("reader_scan") + s("reader_pack"), 4),
-        t_finalize_s=round(fin.seconds, 4),
-        n_h2d=n("h2d"), n_dispatch=n("dispatch"), n_fetch=n("fetch"),
-        t_h2d_s=s("h2d"), t_dispatch_s=s("dispatch"), t_fetch_s=s("fetch"),
-        host_pack_s=s("host_pack"), host_finalize_s=s("host_decode"),
-        t_download_s=round(acc.download_s, 4),
-        chunks=acc.n_chunks, merges=acc.n_merges, regrows=acc.n_regrows,
-        recounts=acc.n_recounts, captured=acc.n_captured,
-        salvaged=salvage_runs is not None,
-        # native 2-bit packs: one a chunk, one more a recounted chunk
-        native_packs=km.PACK_STATS["native"] - packs0)
+    _publish_wire_stats(trace.since(spans0), _acc_counters(acc),
+                        bases=nbases, t_finalize_s=fin.seconds,
+                        salvaged=salvage_runs is not None,
+                        native_packs=km.PACK_STATS["native"] - packs0)
     return out
 
 
@@ -1352,9 +1373,11 @@ def _count_to_db_sharded_spill(paths, out_path: str, k: int, *, mode: str,
 
 
 # what the most recent count_to_db_batched did: chunks seen, batches,
-# the indices skipped as done by an earlier run, and a dict a counted
-# batch (bases, wall seconds, k-mers, whether the device accumulator
-# carried it to the end)
+# the indices skipped as done by an earlier run, a dict a counted batch
+# (bases, wall seconds, k-mers, whether the device accumulator carried
+# it to the end), the whole seconds of the batches' flushes (t_flush_s)
+# and of the final merge (t_merge_s), each partial DB's entries
+# (partial_entries) and their sum, the merge's input (merge_entries)
 LAST_BATCH_STATS: dict = {}
 
 
@@ -1438,35 +1461,53 @@ def count_to_db_batched(paths, out_path: str, k: int, *,
     nchunks = 0
     nbases = 0
     stats = {"batches": 0, "chunks": 0, "skipped": sorted(done_before),
-             "counted": []}
+             "counted": [], "t_flush_s": 0.0}
     cur = {"bases": 0, "t0": _time.perf_counter()}
+    spans0 = dict(trace.LAST_SPANS)
+    packs0 = km.PACK_STATS["native"]
+    # LAST_WIRE_STATS of the whole count: each accumulator's counters
+    # added as it is let go, and the host path's chunks
+    wire = collections.Counter()
+    t_finalize_s = 0.0
+    salvaged = False
 
     def flush_batch(idx):
-        nonlocal acc
+        nonlocal acc, t_finalize_s, salvaged
         if idx in manifest["done"]:
             acc = None
             return  # counted by an earlier run
-        parts = list(runs)
-        on_device = acc is not None and not parts
-        if acc is not None:
-            try:
-                parts.append(acc.finalize())
-            except AccCapacity:  # the final merge outgrew the budget
-                parts.extend(acc.salvage())
-                on_device = False
-            acc = None
-        hi, lo, counts = parts[0] if len(parts) == 1 \
-            else merge_runs(parts)
-        MerylDB.write(f"{out_path}.batch{idx}", k, hi, lo, counts,
-                      mode=mode, hpc=hpc)
-        manifest["done"].append(idx)
-        save_manifest()
+        with trace.span("count.batch_flush") as flush:
+            parts = list(runs)
+            on_device = acc is not None and not parts
+            with trace.span("count.finalize") as fin:
+                if acc is not None:
+                    try:
+                        parts.append(acc.finalize())
+                    except AccCapacity:  # the final merge outgrew it
+                        parts.extend(acc.salvage())
+                        on_device = False
+                        salvaged = True
+                    wire.update(_acc_counters(acc))
+                    acc = None
+                hi, lo, counts = parts[0] if len(parts) == 1 \
+                    else merge_runs(parts)
+            t_finalize_s += fin.seconds
+            with trace.span("count.db_write"):
+                MerylDB.write(f"{out_path}.batch{idx}", k, hi, lo, counts,
+                              mode=mode, hpc=hpc)
+            manifest["done"].append(idx)
+            save_manifest()
+        stats["t_flush_s"] += flush.seconds
         stats["counted"].append(
             {"batch": idx, "bases": cur["bases"], "kmers": len(lo),
              "wall_s": round(_time.perf_counter() - cur["t0"], 4),
              "device_acc": on_device})
 
-    for chunk in chunks:
+    while True:
+        with trace.span("count.wait_reader"):  # the loop blocked on it
+            chunk = next(chunks, None)
+        if chunk is None:
+            break
         batch_idx_cur = nchunks // chunks_per_batch
         nchunks += 1
         if isinstance(chunk, int):
@@ -1489,13 +1530,22 @@ def count_to_db_batched(paths, out_path: str, k: int, *,
                 # salvage is exact and includes everything staged; the
                 # rest of THIS batch runs on the host path
                 runs.extend(acc.salvage())
+                salvaged = True
+                wire.update(_acc_counters(acc))
                 acc = None
         else:
-            wire = _wire_tensors(chunk[1], chunk[2], dev)
+            wire["chunks"] += 1
+            tensors = _wire_tensors(chunk[1], chunk[2], dev)
             runs.extend(_finish_chunk(*_count_chunk(
-                wire + (chunk[3],), k, mode, dev)))
+                tensors + (chunk[3],), k, mode, dev)))
         if progress:
             progress(nbases)
+    if nchunks and (runs or acc is not None
+                    or batch_idx not in manifest["done"]):
+        flush_batch(batch_idx)
+    _publish_wire_stats(trace.since(spans0), wire, bases=nbases,
+                        t_finalize_s=t_finalize_s, salvaged=salvaged,
+                        native_packs=km.PACK_STATS["native"] - packs0)
     stats.update(chunks=nchunks)
     LAST_BATCH_STATS.clear()
     LAST_BATCH_STATS.update(stats)
@@ -1506,29 +1556,29 @@ def count_to_db_batched(paths, out_path: str, k: int, *,
         return MerylDB.write(out_path, k, z, z.copy(),
                              np.zeros(0, np.uint32), mode=mode, hpc=hpc)
     n_batches = (nchunks + chunks_per_batch - 1) // chunks_per_batch
-    if runs or acc is not None or batch_idx not in manifest["done"]:
-        flush_batch(batch_idx)
-    batch_paths = [f"{out_path}.batch{i}" for i in range(n_batches)]
-    LAST_BATCH_STATS.update(batches=n_batches)
+    batch_paths = [p for p in (f"{out_path}.batch{i}"
+                               for i in range(n_batches))
+                   if _os.path.exists(p)]
+    partial = [MerylDB.open(p).stats()["numDistinct"] for p in batch_paths]
+    LAST_BATCH_STATS.update(batches=n_batches, partial_entries=partial,
+                            merge_entries=sum(partial))
 
     # final merge: union-sum over the batch partials
-    t0 = _time.perf_counter()
-    if len(batch_paths) == 1 and _os.path.exists(batch_paths[0]):
-        if _os.path.exists(out_path):
-            shutil.rmtree(out_path)
-        _os.rename(batch_paths[0], out_path)
-        db = MerylDB.open(out_path)
-    else:
-        from .optree import DBInput, OpNode, execute_root
-        node = OpNode(op="union-sum",
-                      inputs=[DBInput(p) for p in batch_paths
-                              if _os.path.exists(p)],
-                      output_path=out_path)
-        db = execute_root(node, k, device=dev)
-        for p in batch_paths:
-            shutil.rmtree(p, ignore_errors=True)
-    LAST_BATCH_STATS.update(
-        merge_wall_s=round(_time.perf_counter() - t0, 4))
+    with trace.span("count.batch_merge") as merge:
+        if len(batch_paths) == 1:
+            if _os.path.exists(out_path):
+                shutil.rmtree(out_path)
+            _os.rename(batch_paths[0], out_path)
+            db = MerylDB.open(out_path)
+        else:
+            from .optree import DBInput, OpNode, execute_root
+            node = OpNode(op="union-sum",
+                          inputs=[DBInput(p) for p in batch_paths],
+                          output_path=out_path)
+            db = execute_root(node, k, device=dev)
+            for p in batch_paths:
+                shutil.rmtree(p, ignore_errors=True)
+    LAST_BATCH_STATS.update(t_merge_s=merge.seconds)
     if _os.path.exists(manifest_path):
         _os.remove(manifest_path)
     return db
