@@ -12,6 +12,7 @@ JAX-free host modules.
 
 from __future__ import annotations
 
+import ctypes
 import os
 import sys
 from dataclasses import dataclass, field
@@ -19,6 +20,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from . import _build
 from . import kmer as km
 from . import trace
 from .db import NUM_FILES, MerylDB, MerylDBWriter
@@ -34,16 +36,119 @@ NEEDS_CONSTANT = ("increase", "decrease", "multiply", "divide",
 
 # device calls of eval_buckets since the last reset (reset with
 # reset_stats()): merge dispatches, the row-batched ones among them,
-# their rows and padded row slots, and input entries merged
+# their rows and padded row slots, and input entries merged; and the
+# evaluator's packs by path (the native pass of csrc/rowpack_host.cpp,
+# or numpy)
 STATS = {}
 
 
 def reset_stats() -> None:
     STATS.update(dispatches=0, row_dispatches=0, rows=0, row_slots=0,
-                 entries=0)
+                 entries=0, packs_native=0, packs_numpy=0)
 
 
 reset_stats()
+
+_rowpack_lib = None     # the native pass; False once it failed to build
+# slots below which the native pass writes from the calling thread alone
+PACK_THREADED_MIN = 1 << 16
+# threads of the native pass above that: on an H100 host's 8 cores four
+# pack a 1-4 M-entry group fastest, and eight lose to them
+# (tools/ab_rowpack.py)
+PACK_THREADS = 4
+
+
+def _native_rowpack():
+    """The native row pack (csrc/rowpack_host.cpp), built at first use,
+    or None when it cannot be built or MERYL_TPU_NO_NATIVE is set."""
+    global _rowpack_lib
+    if os.environ.get("MERYL_TPU_NO_NATIVE"):
+        return None
+    if _rowpack_lib is None:
+        try:
+            lib = _build.load("rowpack_host", ".cpp")
+        except (OSError, RuntimeError):
+            _rowpack_lib = False
+        else:
+            p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+            lib.mt_rowpack_bounds.argtypes = [i32, p, p, p, p, p, i64, p]
+            lib.mt_rowpack_bounds.restype = i64
+            lib.mt_rowpack_fill.argtypes = [i32, p, p, p, p, p, i64, i64,
+                                            i32, i32, i64, i64, p, p, p,
+                                            i32]
+            lib.mt_rowpack_fill.restype = None
+            _rowpack_lib = lib
+    return _rowpack_lib or None
+
+
+def pack_threads(slots: int) -> int:
+    """Threads of the native pack of `slots` slots: one below
+    PACK_THREADED_MIN, else PACK_THREADS or the process's cores if
+    fewer."""
+    if slots < PACK_THREADED_MIN:
+        return 1
+    return min(PACK_THREADS, len(os.sched_getaffinity(0)))
+
+
+class _NativePack:
+    """One pack's inputs as the native pass reads them: contiguous u64
+    (hi, lo) and u32 or int64 counts (other count types cast to int64,
+    as numpy's assignment casts them), and arrays of their addresses."""
+
+    def __init__(self, lib, ins):
+        self.lib = lib
+        self.m = len(ins)
+        self._keep = []
+        his, los, cts, nbytes, lens = [], [], [], [], []
+        for hi, lo, c in ins:
+            hi = np.ascontiguousarray(hi, np.uint64)
+            lo = np.ascontiguousarray(lo, np.uint64)
+            c = np.asarray(c)
+            if c.dtype not in (np.uint32, np.int64, np.uint64):
+                c = c.astype(np.int64)
+            c = np.ascontiguousarray(c)
+            if not len(hi) == len(lo) == len(c):
+                raise ValueError(f"input of {len(hi)} hi, {len(lo)} lo and "
+                                 f"{len(c)} counts")
+            self._keep += [hi, lo, c]
+            his.append(hi.ctypes.data)
+            los.append(lo.ctypes.data)
+            cts.append(c.ctypes.data)
+            nbytes.append(c.itemsize)
+            lens.append(len(c))
+        self.his = np.array(his, np.uintp)
+        self.los = np.array(los, np.uintp)
+        self.counts = np.array(cts, np.uintp)
+        self.count_bytes = np.array(nbytes, np.int32)
+        self.lens = np.array(lens, np.int64)
+
+    def bounds(self, cut_hi, cut_lo, R: int):
+        """-> (m, R+1) row bounds at the R-1 cuts, the fullest row's
+        occupancy."""
+        cut_hi = np.ascontiguousarray(cut_hi, np.uint64)
+        cut_lo = np.ascontiguousarray(cut_lo, np.uint64)
+        b = np.empty((self.m, R + 1), np.int64)
+        occ = self.lib.mt_rowpack_bounds(
+            self.m, self.his.ctypes.data, self.los.ctypes.data,
+            self.lens.ctypes.data, cut_hi.ctypes.data, cut_lo.ctypes.data,
+            R, b.ctypes.data)
+        return b, occ
+
+    def fill(self, bounds, R: int, L: int, m: int, k: int):
+        """-> (R, L) keys, values, ids, every slot written once."""
+        bounds = np.ascontiguousarray(bounds, np.int64)
+        sent = mw.sentinel_words(k)
+        keys = np.empty((R, L) + (() if len(sent) == 1 else (2,)), np.int64)
+        values = np.empty((R, L), np.int64)
+        ids = np.empty((R, L), np.int32)
+        self.lib.mt_rowpack_fill(
+            self.m, self.his.ctypes.data, self.los.ctypes.data,
+            self.counts.ctypes.data, self.count_bytes.ctypes.data,
+            bounds.ctypes.data, R, L, m, len(sent), sent[0], sent[-1],
+            keys.ctypes.data, values.ctypes.data, ids.ctypes.data,
+            pack_threads(R * L))
+        STATS["packs_native"] += 1
+        return keys, values, ids
 
 
 @dataclass
@@ -215,10 +320,14 @@ class BucketEvaluator:
             out[j] = a + np.searchsorted(lo[a:b], cut_lo[j], "left")
         return out
 
-    def _row_bounds(self, ins, R: int):
+    def _row_bounds(self, ins, R: int, native=None):
         """Per-input (R+1,) row bounds at R-1 shared cut keys, and the
-        quantized row length that holds the fullest row."""
+        quantized row length that holds the fullest row; found by the
+        native pass when given one (a _NativePack of ins)."""
         cut_hi, cut_lo = self._row_cuts(ins, R)
+        if native is not None:
+            bounds, occ = native.bounds(cut_hi, cut_lo, R)
+            return bounds, self._quantize_rowlen(int(occ))
         bounds = []
         for hi, lo, c in ins:
             b = np.empty(R + 1, np.int64)
@@ -230,6 +339,13 @@ class BucketEvaluator:
         for b in bounds:
             occ += b[1:] - b[:-1]
         return bounds, self._quantize_rowlen(int(occ.max()))
+
+    @staticmethod
+    def _native_pack(ins, extras):
+        """A _NativePack of ins, or None where numpy packs: with extras
+        (meryl2's labels), under MERYL_TPU_NO_NATIVE or without g++."""
+        lib = None if extras is not None else _native_rowpack()
+        return None if lib is None else _NativePack(lib, ins)
 
     def _pack_rows(self, ins, m: int, extras=None):
         """Pack m sorted-unique (hi, lo, counts) inputs into (R, L)
@@ -244,17 +360,25 @@ class BucketEvaluator:
         extras: optional per-input list of extra payload arrays (meryl2's
         label halves), each aligned with that input's counts; packed
         beside the values, zero-padded, and returned as a fourth element
-        when given."""
+        when given.
+
+        Without extras the native pass finds the bounds and writes the
+        arrays; with them, and under MERYL_TPU_NO_NATIVE or without g++,
+        numpy does."""
+        native = self._native_pack(ins, extras)
         total = sum(len(c) for _, _, c in ins)
         R = max(2, min(1 << 11, total // self.ROW_TARGET))
         R = 1 << (R - 1).bit_length()
-        bounds, L = self._row_bounds(ins, R)
+        bounds, L = self._row_bounds(ins, R, native)
         while L > rowsort.MAX_ROW:
             if R > 2 * total:
                 raise RuntimeError(f"cannot split {total} entries into rows "
                                    f"of at most {rowsort.MAX_ROW}")
             R *= 2
-            bounds, L = self._row_bounds(ins, R)
+            bounds, L = self._row_bounds(ins, R, native)
+        if native is not None:
+            return native.fill(bounds, R, L, m, self.k)
+        STATS["packs_numpy"] += 1
         nw = mw.num_words(self.k)
         shape = (R, L) if nw == 1 else (R, L, 2)
         keys = np.empty(shape, np.int64)
@@ -282,9 +406,17 @@ class BucketEvaluator:
 
     def _pack_flat(self, ins, m: int, extras=None):
         """Concatenate m (hi, lo, counts) inputs into one padded flat
-        key / value / id row; extras as in _pack_rows."""
+        key / value / id row; extras and the path as in _pack_rows (the
+        native pass writes one row of N slots)."""
+        native = self._native_pack(ins, extras)
         total = sum(len(c) for _, _, c in ins)
         N = self._pad_to(total)
+        if native is not None:
+            bounds = np.zeros((len(ins), 2), np.int64)
+            bounds[:, 1] = native.lens
+            keys, values, ids = native.fill(bounds, 1, N, m, self.k)
+            return keys[0], values[0], ids[0]
+        STATS["packs_numpy"] += 1
         nw = mw.num_words(self.k)
         keys = np.empty((N,) if nw == 1 else (N, 2), np.int64)
         keys[...] = np.array(mw.sentinel_words(self.k), np.int64) \
