@@ -8,6 +8,8 @@ seeded with (seed, stream), one stream an input, so one input does not
 shift another.  The sizes of a read set (its read count and lengths,
 its numbers of substitutions and N) depend on the configuration alone:
 a seed changes which bases are read, never how much work there is.
+A FASTQ's qualities are the constant 'I' unless a quality model is
+given; its draws take a stream of their own, so the bases do not shift.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ LETTERS = np.frombuffer(b"ACTGN", np.uint8)
 N_CODE = 4
 
 # stream ids of default_rng((seed, stream))
-GENOME, READS, ASSEMBLY = 1, 2, 3
+GENOME, READS, ASSEMBLY, QUALITY = 1, 2, 3, 4
 
 
 def rng_for(seed: int, stream: int, extra: int = 0) -> np.random.Generator:
@@ -119,6 +121,38 @@ def make_reads(genome: np.ndarray, spec: dict, depth: float, seed: int,
     return ReadSet(codes, lens.astype(np.int64), prefix)
 
 
+def make_qualities(rs: ReadSet, spec: dict, seed: int,
+                   stream_extra: int) -> np.ndarray:
+    """One quality letter a base (uint8, flat in file order) from spec
+    {"symbols": S, "start": [w...], "end": [w...]}: at a read's first
+    base symbol j has weight start[j], at its last end[j], and linear
+    between; drawn base by base from the stream (seed, QUALITY,
+    stream_extra).  Reads of one length only, as short-read FASTQ is."""
+    sym = np.frombuffer(spec["symbols"].encode(), np.uint8)
+    w0 = np.asarray(spec["start"], np.float64)
+    w1 = np.asarray(spec["end"], np.float64)
+    if not (sym.size == w0.size == w1.size > 0):
+        raise ValueError("quality: one start and one end weight a symbol")
+    if rs.n_reads == 0 or (rs.lens != rs.lens[0]).any():
+        raise ValueError("quality: reads of one length only")
+    L = int(rs.lens[0])
+    # each position's cumulative weights, as uint16 cuts of a uniform draw
+    f = np.linspace(0.0, 1.0, L)[:, None]
+    w = w0 / w0.sum() * (1 - f) + w1 / w1.sum() * f
+    cuts = np.rint(np.cumsum(w, axis=1)[:, :-1] * 65536)
+    cuts = np.minimum(cuts, 65535).astype(np.uint16)    # (L, S - 1)
+    rng = rng_for(seed, QUALITY, stream_extra)
+    out = np.empty((rs.n_reads, L), np.uint8)
+    per = max(1, (1 << 24) // L)
+    for a in range(0, rs.n_reads, per):
+        u = rng.integers(0, 65536, (min(per, rs.n_reads - a), L), np.uint16)
+        idx = np.zeros(u.shape, np.uint8)
+        for j in range(cuts.shape[1]):
+            idx += u >= cuts[:, j]
+        out[a:a + per] = sym[idx]
+    return out.reshape(-1)
+
+
 def make_assembly(genome: np.ndarray, every: int, seed: int) -> np.ndarray:
     """The genome as one contig with one substitution every `every`
     bases, from an offset drawn from the seed."""
@@ -142,8 +176,9 @@ def _digits(idx: np.ndarray, width: int) -> np.ndarray:
     return out
 
 
-def write_fastq(path: str, rs: ReadSet) -> int:
-    """One four-line record a read, quality 'I'; -> bytes written."""
+def fastq_bytes(rs: ReadSet, qual: np.ndarray | None = None) -> np.ndarray:
+    """One four-line record a read, as uint8 text: qualities from `qual`
+    (one letter a base, flat), or 'I' when it is None."""
     n, w = rs.n_reads, _name_width(rs.n_reads)
     head = 1 + len(rs.prefix) + w + 1
     if n and (rs.lens == rs.lens[0]).all():
@@ -156,27 +191,31 @@ def write_fastq(path: str, rs: ReadSet) -> int:
         rec[:, head - 1] = 10
         rec[:, head:head + L] = LETTERS[rs.codes.reshape(n, L)]
         rec[:, head + L:head + L + 3] = np.frombuffer(b"\n+\n", np.uint8)
-        rec[:, head + L + 3:-1] = ord("I")
+        rec[:, head + L + 3:-1] = ord("I") if qual is None else \
+            qual.reshape(n, L)
         rec[:, -1] = 10
-        rec.tofile(path)
-        return rec.size
+        return rec.reshape(-1)
     names = _digits(np.arange(n), w)
     pre = b"@" + rs.prefix.encode()
-    size = 0
-    with open(path, "wb") as f:
-        for i, (s, L) in enumerate(zip(rs.starts.tolist(),
-                                       rs.lens.tolist())):
-            rec = b"".join((pre, names[i].tobytes(), b"\n",
-                            LETTERS[rs.codes[s:s + L]].tobytes(), b"\n+\n",
-                            b"I" * L, b"\n"))
-            f.write(rec)
-            size += len(rec)
-    return size
+    recs = []
+    for i, (s, L) in enumerate(zip(rs.starts.tolist(), rs.lens.tolist())):
+        recs.append(b"".join((pre, names[i].tobytes(), b"\n",
+                              LETTERS[rs.codes[s:s + L]].tobytes(), b"\n+\n",
+                              b"I" * L if qual is None else
+                              qual[s:s + L].tobytes(), b"\n")))
+    return np.frombuffer(b"".join(recs), np.uint8)
 
 
-def write_fasta(path: str, name: str, codes: np.ndarray,
-                line: int = 80) -> int:
-    """One sequence in lines of `line` bases; -> bytes written."""
+def write_fastq(path: str, rs: ReadSet,
+                qual: np.ndarray | None = None) -> int:
+    """fastq_bytes to path; -> bytes written."""
+    data = fastq_bytes(rs, qual)
+    data.tofile(path)
+    return data.size
+
+
+def fasta_bytes(name: str, codes: np.ndarray, line: int = 80) -> bytes:
+    """One sequence in lines of `line` bases."""
     n = codes.size
     rows = -(-n // line)
     buf = np.full((rows, line + 1), 10, np.uint8)
@@ -187,7 +226,13 @@ def write_fasta(path: str, name: str, codes: np.ndarray,
     keep = np.ones(body.size, bool)
     if n % line:                       # the last line's unused columns
         keep[(rows - 1) * (line + 1) + n % line:-1] = False
-    data = b">" + name.encode() + b"\n" + body[keep].tobytes()
+    return b">" + name.encode() + b"\n" + body[keep].tobytes()
+
+
+def write_fasta(path: str, name: str, codes: np.ndarray,
+                line: int = 80) -> int:
+    """fasta_bytes to path; -> bytes written."""
+    data = fasta_bytes(name, codes, line)
     with open(path, "wb") as f:
         f.write(data)
     return len(data)

@@ -3,6 +3,7 @@ line, the check's numbers, and that the check catches a broken timed
 path and the control.  (On the CPU, run_cell skips only the look for a
 card: the program runs with device=cpu.)"""
 
+import gzip
 import importlib
 import io
 import json
@@ -22,7 +23,8 @@ import control
 import run as bench_run
 
 CELLS = ["ecoli-k12-illumina-k21.count", "scer-s288c-hifi-k21.count",
-         "ecoli-k12-illumina-k21.merqury", "ecoli-k12-illumina-k21.lookup"]
+         "ecoli-k12-illumina-k21.merqury", "ecoli-k12-illumina-k21.lookup",
+         "ecoli-k12-illumina-k21.count-gz"]
 SEED = 2 ** 31 + 99
 
 
@@ -57,7 +59,7 @@ def test_sound_run(bench, name, tmp_path):
     json.dumps(res)
 
 
-@pytest.mark.parametrize("name", [CELLS[0], CELLS[2]])
+@pytest.mark.parametrize("name", [CELLS[0], CELLS[2], CELLS[4]])
 def test_traced_run(bench, name, tmp_path, monkeypatch):
     # the device-accumulator path, which the card takes, on the CPU
     monkeypatch.setenv("MERYL_TPU_DEVICE_ACC", "1")
@@ -69,20 +71,19 @@ def test_traced_run(bench, name, tmp_path, monkeypatch):
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
     assert res["device"]["window_s"] > 0
     # no device here: the device's metrics find nothing to read; the
-    # program's counters still do
-    if name.endswith(".count"):
-        assert set(res["metrics"]) == {"count.reader_busy_share",
-                                       "count.scan_stall_share",
-                                       "count.finalize_share"}
-        assert all(0 < m["value"] < 100 for m in res["metrics"].values())
+    # program's spans still do
+    assert set(res["metrics"]) == {m["name"] for m in cell.per_layer
+                                   if m["source"] == "program_span"}
+    assert all(0 < m["value"] < 100 for m in res["metrics"].values())
 
 
 # ------------------------------------------------------ the timed path broken
 
 def _half_fastq(src, dst):
-    with open(src, "rb") as f:
+    opener = gzip.open if src.endswith(".gz") else open
+    with opener(src, "rb") as f:
         lines = f.read().splitlines(keepends=True)
-    with open(dst, "wb") as f:
+    with opener(dst, "wb") as f:
         f.writelines(lines[:len(lines) // 8 * 4])
 
 
@@ -128,7 +129,8 @@ def broken(fault, real_main, tmp, k, untouched):
         if fault == "half":               # half of the input left out
             for i, w in enumerate(argv):
                 half = os.path.join(tmp, f"half{i}-" + os.path.basename(w))
-                if w.endswith(".fq") and not os.path.exists(half):
+                if w.endswith((".fq", ".fq.gz")) and \
+                        not os.path.exists(half):
                     _half_fastq(w, half)
                 elif w.endswith(".meryl") and os.path.isdir(w) and \
                         "/slot-" not in w and not os.path.exists(half):
@@ -143,7 +145,7 @@ def broken(fault, real_main, tmp, k, untouched):
 
 
 @pytest.mark.parametrize("fault", ["unchanged", "half", "alter"])
-@pytest.mark.parametrize("name", [CELLS[0], CELLS[2], CELLS[3]])
+@pytest.mark.parametrize("name", [CELLS[0], CELLS[2], CELLS[3], CELLS[4]])
 def test_broken_path_is_not_correct(bench, name, fault, tmp_path,
                                     monkeypatch):
     cell = cell_of(bench, name)

@@ -218,6 +218,33 @@ def test_variable_lengths_fixed_across_seeds():
     assert rd.LETTERS[read].tobytes() in gs or rc in gs
 
 
+def test_qualities_follow_the_model(tmp_path):
+    spec = {"length": {"fixed": 100}, "substitution_rate": 0.0,
+            "n_rate": 0.0}
+    model = {"symbols": "AB", "start": [1, 0], "end": [0, 3]}
+    g = rd.make_genome(20000, 4)
+    rs = rd.make_reads(g, spec, 20, 4, 0, "r")
+    q = rd.make_qualities(rs, model, 4, 0)
+    assert q.size == rs.bases
+    assert np.array_equal(q, rd.make_qualities(rs, model, 4, 0))
+    assert not np.array_equal(q, rd.make_qualities(rs, model, 5, 0))
+    first, last = q[rs.starts], q[rs.starts + rs.lens - 1]
+    assert (first == ord("A")).all() and (last == ord("B")).all()
+    mid = np.concatenate([q[rs.starts + 49], q[rs.starts + 50]])
+    assert 0.4 < np.mean(mid == ord("B")) < 0.6
+    rd.write_fastq(str(tmp_path / "r.fq"), rs, q)
+    lines = (tmp_path / "r.fq").read_bytes().split(b"\n")
+    assert b"".join(lines[3::4]) == q.tobytes()
+    with pytest.raises(ValueError, match="weight"):
+        rd.make_qualities(rs, {"symbols": "AB", "start": [1],
+                               "end": [1, 1]}, 4, 0)
+    hifi = {"length": {"lognormal_mean": 400, "lognormal_sigma": 0.3,
+                       "min": 100, "max": 900, "draw_seed": 3},
+            "substitution_rate": 0.0, "n_rate": 0.0}
+    with pytest.raises(ValueError, match="one length"):
+        rd.make_qualities(rd.make_reads(g, hifi, 4, 4, 0, "r"), model, 4, 0)
+
+
 def test_fastq_and_fasta_parse(tmp_path):
     from meryl_tpu_torch.io.sequence import iter_sequences
     g = rd.make_genome(1000, 9)
